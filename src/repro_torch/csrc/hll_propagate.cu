@@ -1,0 +1,71 @@
+// hll_propagate: one Algorithm 2 pass, row gather-max over edges.
+//
+// Replaces repro/kernels/hll_propagate.py `hll_propagate` (the Pallas
+// kernel): out starts as a copy of regs (the wrapper clones it), then for
+// every directed edge e, out[dst[e]] = max(out[dst[e]], regs[src[e]]),
+// always reading the frozen input panel D^{t-1}, never out. An in-place
+// merge would let one pass reach two hops.
+//
+// What bounds it on the H100: scattered row traffic. Each edge reads a
+// whole source row (r bytes) and read-modify-writes a whole destination
+// row, both at random places in panels far larger than L2, so the pass
+// moves about 2 * E * r bytes against a panel of V * r; the bytes bound of
+// reading regs, src and dst once and writing out once is far lower.
+//
+// Design: one thread per (edge, 32-bit word of the row), so a row's words
+// go to neighbouring threads and each row access is one coalesced run of
+// r bytes. The word of regs[src] is merged into out[dst] with a
+// compare-and-swap loop on __vmaxu4 (four byte-wise maxima at once), and
+// the atomic is skipped when the merge would change nothing, which is
+// most of the time once sketches saturate. A zero source word and a
+// self-edge (including the (0, 0) padding slots) are no-ops and skipped.
+#include "common.cuh"
+
+namespace {
+
+__global__ void hll_propagate_kernel(const uint32_t* __restrict__ regs,
+                                     uint32_t* __restrict__ out,
+                                     const int32_t* __restrict__ src,
+                                     const int32_t* __restrict__ dst,
+                                     int64_t n_edges, int64_t n_rows,
+                                     int word_shift) {
+  const int64_t words = static_cast<int64_t>(1) << word_shift;
+  const int64_t total = n_edges << word_shift;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < total; i += stride) {
+    const int64_t e = i >> word_shift;
+    const int64_t w = i & (words - 1);
+    const int64_t s = src[e];
+    const int64_t d = dst[e];
+    if (s == d || s < 0 || d < 0 || s >= n_rows || d >= n_rows) continue;
+    const uint32_t v = regs[(s << word_shift) + w];
+    if (v == 0u) continue;
+    uint32_t* o = out + (d << word_shift) + w;
+    uint32_t old = *o;
+    for (;;) {
+      const uint32_t merged = __vmaxu4(old, v);
+      if (merged == old) break;
+      const uint32_t seen = atomicCAS(o, old, merged);
+      if (seen == old) break;
+      old = seen;
+    }
+  }
+}
+
+}  // namespace
+
+extern "C" int hll_propagate(const uint8_t* regs, uint8_t* out,
+                             const int32_t* src, const int32_t* dst,
+                             int64_t n_edges, int64_t n_rows, int r,
+                             cudaStream_t stream) {
+  if (n_edges == 0) return 0;
+  int word_shift = 0;
+  while ((4 << word_shift) < r) ++word_shift;
+  constexpr int kThreads = 256;
+  hll_propagate_kernel<<<repro::grid_for(n_edges << word_shift, kThreads),
+                         kThreads, 0, stream>>>(
+      reinterpret_cast<const uint32_t*>(regs), reinterpret_cast<uint32_t*>(out),
+      src, dst, n_edges, n_rows, word_shift);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,204 @@
+"""Build, load and launch the hand-written CUDA kernels under ``csrc/``.
+
+The kernels have a plain C interface (one ``extern "C"`` launcher per
+kernel, returning the ``cudaError_t`` of its launch) and are compiled with
+``nvcc`` into one shared library at first use, then loaded with
+``ctypes``. Every ``.cu`` file is compiled by its own ``nvcc`` process,
+all started together, then linked. The library goes to
+``build/repro_torch/`` at the repository root, named by a hash of the
+sources and flags, so an unchanged tree reuses it and an edited one
+rebuilds. A missing ``nvcc`` or a failed build raises; nothing falls back.
+
+Each wrapper launches through :func:`launch`, which raises on a non-zero
+error code and otherwise adds one to the kernel's launch counter: the
+only global state of the port, read by ``chip_smoke.py`` to show that the
+main path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+import torch
+
+__all__ = ["KERNELS", "NVCC_FLAGS", "build", "library", "launch",
+           "launch_counts", "reset_launch_counts", "check_device", "check_panel",
+           "check_ids", "stream_of"]
+
+_CSRC = Path(__file__).resolve().parent.parent / "csrc"
+_BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P, _I64, _I32, _U32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                        ctypes.c_uint32)
+
+#: C launcher name -> argument types (pointers and the stream as c_void_p)
+KERNELS = {
+    # regs, rows, keys, mask, n_edges, n_rows, p, s_hi, s_lo, stream
+    "hll_accumulate": (_P, _P, _P, _P, _I64, _I64, _I32, _U32, _U32, _P),
+    # regs, out, n_rows, r, stream
+    "hll_estimate_stats": (_P, _P, _I64, _I32, _P),
+    # regs, out, src, dst, n_edges, n_rows, r, stream
+    "hll_propagate": (_P, _P, _P, _P, _I64, _I64, _I32, _P),
+    # regs, pa, pb, stats, sz, n_pairs, n_rows, r, q, stream
+    "intersection_stats": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
+}
+
+_LAUNCHES = {name: 0 for name in KERNELS}
+_LIB: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+    found = shutil.which("nvcc")
+    if found is None and CUDA_HOME is not None:
+        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
+        found = cand if os.path.exists(cand) else None
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (PATH or CUDA_HOME): the CUDA kernels under "
+            f"{_CSRC} cannot be built")
+    return found
+
+
+def _digest(files: list[Path]) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in files:
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the shared library (once per source hash).
+
+    Returns the library's path. ``nvcc``'s ``-Xptxas -v`` report (registers,
+    shared memory, spills per kernel) is kept beside it as ``.log``.
+    """
+    sources = sorted(_CSRC.glob("*.cu"))
+    lib = _BUILD_DIR / f"libreprotorch_{_digest(sorted(_CSRC.glob('*.cu*')))}.so"
+    if lib.exists():
+        return lib
+    nvcc = _nvcc()
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=_BUILD_DIR))
+    try:
+        objs = [tmp / (src.stem + ".o") for src in sources]
+        procs = [subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", str(src), "-o", str(obj)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for src, obj in zip(sources, objs)]
+        logs = [proc.communicate()[0] for proc in procs]
+        failed = [(src.name, log) for src, proc, log
+                  in zip(sources, procs, logs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"--- {name}\n{log}" for name, log in failed))
+        out = tmp / lib.name
+        link = subprocess.run(
+            [nvcc, *NVCC_FLAGS[:2], "-shared", *map(str, objs), "-o", str(out)],
+            capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
+        lib.with_suffix(".log").write_text("".join(logs))
+        os.replace(out, lib)  # atomic: a concurrent build sees all or none
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first use), argtypes declared."""
+    global _LIB
+    if _LIB is None:
+        lib = ctypes.CDLL(str(build()))
+        for name, argtypes in KERNELS.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(argtypes)
+            fn.restype = ctypes.c_int
+        lib.repro_error_string.argtypes = [ctypes.c_int]
+        lib.repro_error_string.restype = ctypes.c_char_p
+        _LIB = lib
+    return _LIB
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call C launcher ``name`` on ``device``; raise on a launch error.
+
+    Counts the launch only once the kernel was accepted.
+    """
+    lib = library()
+    with torch.cuda.device(device):
+        err = getattr(lib, name)(*args)
+    if err != 0:
+        raise RuntimeError(
+            f"CUDA kernel {name} failed to launch: cudaError {err} "
+            f"({lib.repro_error_string(err).decode()})")
+    _LAUNCHES[name] += 1
+
+
+def launch_counts() -> dict[str, int]:
+    """Snapshot of {kernel: launches since the last reset}."""
+    return dict(_LAUNCHES)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch counter to 0."""
+    for name in _LAUNCHES:
+        _LAUNCHES[name] = 0
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """Raw handle of PyTorch's current CUDA stream on ``t``'s device."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_device(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raise for others."""
+    if t.device.type == "cuda":
+        return True
+    if t.device.type == "cpu":
+        return False
+    raise ValueError(f"{name} lies on {t.device}; only cuda and cpu are "
+                     f"supported")
+
+
+def check_panel(regs: torch.Tensor, layout: str) -> tuple[int, int]:
+    """Validate a byte-layout register panel; return (rows, r).
+
+    The kernels read rows as 4- and 8-byte words: r must be a power of two
+    >= 8 and the panel 8-byte aligned (any allocation is; an offset view
+    may not be).
+    """
+    if layout != "byte":
+        raise ValueError(
+            f"layout {layout!r} is not ported yet; only 'byte' is "
+            f"(the packed layout is ROADMAP Queue A item 10)")
+    if regs.dtype != torch.uint8 or regs.dim() != 2:
+        raise ValueError(f"regs must be uint8[V, r], got {regs.dtype}"
+                         f"{list(regs.shape)}")
+    v, r = regs.shape
+    if r < 8 or r & (r - 1):
+        raise ValueError(f"row width r={r} must be a power of two >= 8")
+    if not regs.is_contiguous() or regs.data_ptr() % 8:
+        raise ValueError("regs must be contiguous and 8-byte aligned")
+    return v, r
+
+
+def check_ids(t: torch.Tensor, name: str, like: torch.Tensor,
+              length: int | None = None, dtype=torch.int32) -> None:
+    """Validate a 1-D contiguous index/key/mask tensor beside ``like``."""
+    if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor, "
+                         f"got {t.dtype}{list(t.shape)}")
+    if t.device != like.device:
+        raise ValueError(f"{name} is on {t.device}, regs on {like.device}")
+    if length is not None and t.shape[0] != length:
+        raise ValueError(f"{name} has {t.shape[0]} entries, expected {length}")

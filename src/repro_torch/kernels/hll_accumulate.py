@@ -1,0 +1,69 @@
+"""Fused hash + HLL scatter-max accumulation (Algorithm 1 INSERT).
+
+Wrapper of ``csrc/hll_accumulate.cu``, the port of the Pallas kernel
+``repro.kernels.hll_accumulate.hll_accumulate``: for every edge e with
+``mask[e]``, ``regs[rows[e], bucket(keys[e])] max= rho(keys[e])``, with the
+hash computed inside the kernel. The panel is updated in place, as the
+JAX ingest path donates it (``accumulate_donated``), and returned.
+
+On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
+:func:`plain`, the plain PyTorch version.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.hashing import bucket_rho, seed_words
+from repro_torch.kernels import _build, ref
+
+__all__ = ["hll_accumulate", "plain"]
+
+
+def _check(regs, rows, keys, mask, p, layout) -> bool:
+    on_card = _build.check_device(regs, "regs")
+    _, r = _build.check_panel(regs, layout)
+    if not (1 <= p <= 31) or r != 1 << p:
+        raise ValueError(f"p={p} does not match the panel width r={r}")
+    e = rows.shape[0]
+    _build.check_ids(rows, "rows", regs)
+    _build.check_ids(keys, "keys", regs, e, dtype=torch.uint32)
+    _build.check_ids(mask, "mask", regs, e, dtype=torch.bool)
+    return on_card
+
+
+def plain(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
+          mask: torch.Tensor, *, p: int, seed: int = 0) -> torch.Tensor:
+    """Plain PyTorch version: hash, park masked edges, scatter-max.
+
+    Masked edges get rho=0 and park on row 0 (max with 0 is a no-op), the
+    convention of ``repro/kernels/ops.py:77-87``. Hashes one chunk of
+    edges at a time. Updates ``regs`` in place and returns it.
+    """
+    for s in range(0, rows.shape[0], ref.EDGE_CHUNK):
+        m = mask[s:s + ref.EDGE_CHUNK]
+        buckets, rhos = bucket_rho(keys[s:s + ref.EDGE_CHUNK], p, seed)
+        rhos = torch.where(m, rhos, torch.zeros_like(rhos))
+        rows_c = torch.where(m, rows[s:s + ref.EDGE_CHUNK],
+                             torch.zeros_like(rows[s:s + ref.EDGE_CHUNK]))
+        ref.hll_accumulate_ref(regs, rows_c, buckets, rhos)
+    return regs
+
+
+def hll_accumulate(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
+                   mask: torch.Tensor, *, p: int, seed: int = 0,
+                   layout: str = "byte") -> torch.Tensor:
+    """regs: uint8[V, r] (updated in place); rows: int32[E]; keys: uint32[E];
+    mask: bool[E]. Returns ``regs``.
+
+    Row ids must lie in [0, V); the engine validates them on the host
+    before they reach the card (the kernel drops an out-of-range row
+    rather than write outside the panel).
+    """
+    if not _check(regs, rows, keys, mask, p, layout):
+        return plain(regs, rows, keys, mask, p=p, seed=seed)
+    s_hi, s_lo = seed_words(seed)
+    _build.launch("hll_accumulate", regs.device, regs.data_ptr(),
+                  rows.data_ptr(), keys.data_ptr(), mask.data_ptr(),
+                  rows.shape[0], regs.shape[0], p, s_hi, s_lo,
+                  _build.stream_of(regs))
+    return regs

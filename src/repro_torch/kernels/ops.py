@@ -1,0 +1,60 @@
+"""Kernel glue: the padding and parking conventions of ``repro.kernels.ops``.
+
+* accumulate: masked edges are skipped by the kernel and park on row 0
+  with rho 0 in the plain version, ``ops.py:77-87``;
+* propagate: the kernel runs over the live routing; a ``(0, 0)`` slot
+  would be a self-merge no-op, which is how the JAX package parks its
+  masked slots (``ops.py:178-180``);
+* estimate: the kernel's ``(s, z)`` are combined by the config's
+  estimator (Flajolet, ``ops.py:208-224``, or LogLogBeta);
+* intersection_stats: pair lanes ``(B, 2)`` split into the two endpoint
+  vectors; padding pairs gather row 0 and the caller drops their answers.
+
+The CUDA kernels need no block padding (each masks its own ragged edge),
+and their launch shapes are constants in ``csrc/``; the autotune table of
+the JAX package is not ported yet.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import hll
+from repro_torch.core.hll import HLLConfig
+from repro_torch.kernels.hll_accumulate import hll_accumulate
+from repro_torch.kernels.hll_estimate import hll_estimate_stats
+from repro_torch.kernels.hll_propagate import hll_propagate
+from repro_torch.kernels.intersection_stats import (
+    intersection_stats as _intersection_stats)
+
+__all__ = ["accumulate", "propagate", "estimate", "intersection_stats"]
+
+
+def accumulate(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
+               cfg: HLLConfig, mask: torch.Tensor | None = None,
+               layout: str = "byte") -> torch.Tensor:
+    """Insert keys[e] into sketch regs[rows[e]] in place (Algorithm 1)."""
+    if mask is None:
+        mask = torch.ones(rows.shape, dtype=torch.bool, device=rows.device)
+    return hll_accumulate(regs, rows, keys, mask, p=cfg.p, seed=cfg.seed,
+                          layout=layout)
+
+
+def propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+              layout: str = "byte") -> torch.Tensor:
+    """One Algorithm 2 merge pass into a fresh panel."""
+    return hll_propagate(regs, src, dst, layout=layout)
+
+
+def estimate(regs: torch.Tensor, cfg: HLLConfig,
+             layout: str = "byte") -> torch.Tensor:
+    """Cardinality estimate per sketch row (uint8[N, r]) by ``cfg.estimator``."""
+    stats = hll_estimate_stats(regs, layout=layout)
+    return hll.estimate_from_stats(stats[:, 0], stats[:, 1], cfg)
+
+
+def intersection_stats(regs: torch.Tensor, pairs: torch.Tensor,
+                       cfg: HLLConfig, layout: str = "byte",
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused T̃(xy) pair statistics over ``(B, 2)`` int32 pair lanes."""
+    return _intersection_stats(regs, pairs[:, 0].contiguous(),
+                               pairs[:, 1].contiguous(), cfg.q, layout=layout)

@@ -1,0 +1,127 @@
+"""Plain PyTorch versions of the main-path kernels (the correctness contract).
+
+Counterpart of ``repro.kernels.ref``: each function defines the exact
+semantics its CUDA kernel reproduces, runs on any device, and is what a
+kernel wrapper calls when its tensors lie on the CPU. ``chip_smoke.py``
+holds every kernel against these on the card.
+
+Unlike the jnp oracles, which gather whole ``(E, r)`` panels (``regs[src]``
+at a real graph's edge count is tens of GB) and build one-hot
+``(B, r, q+2)`` float panels, every function here walks its edges, rows or
+pairs in chunks and never holds more than one chunk's intermediates.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["hll_accumulate_ref", "hll_propagate_ref", "hll_estimate_ref",
+           "intersection_stats_ref", "EDGE_CHUNK", "ROW_CHUNK",
+           "PROPAGATE_CHUNK", "PAIR_CHUNK"]
+
+#: edges per scatter-max step of the accumulate reference
+EDGE_CHUNK = 1 << 20
+#: rows per reduction step of the estimate reference
+ROW_CHUNK = 1 << 16
+#: edges per gather/scatter step of the propagate reference (each step
+#: holds a (chunk, r) row panel and its int64 flat indices)
+PROPAGATE_CHUNK = 1 << 16
+#: pairs per step of the intersection-statistics reference
+PAIR_CHUNK = 1 << 14
+
+
+def hll_accumulate_ref(regs: torch.Tensor, rows: torch.Tensor,
+                       buckets: torch.Tensor, rhos: torch.Tensor,
+                       ) -> torch.Tensor:
+    """Scatter-max in place: regs[rows[e], buckets[e]] <- max(., rhos[e]).
+
+    rho == 0 entries are no-ops (the empty register value), which is how
+    padding edges are parked. regs: uint8[V, r]; rows/buckets: int[E];
+    rhos: uint8[E]. Returns ``regs``.
+    """
+    r = regs.shape[1]
+    flat = regs.view(-1)
+    for s in range(0, rows.shape[0], EDGE_CHUNK):
+        idx = (rows[s:s + EDGE_CHUNK].to(torch.int64) * r
+               + buckets[s:s + EDGE_CHUNK].to(torch.int64))
+        flat.scatter_reduce_(0, idx, rhos[s:s + EDGE_CHUNK], reduce="amax")
+    return regs
+
+
+def hll_propagate_ref(regs: torch.Tensor, src: torch.Tensor,
+                      dst: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Row gather-max: out[dst[e]] <- max(out[dst[e]], regs[src[e]]).
+
+    Reads always come from the input ``regs`` (the frozen D^{t-1}); the
+    output starts as a copy of it (Algorithm 2 line 23). mask=False
+    edges are no-ops. Returns a new panel.
+    """
+    out = regs.clone()
+    r = regs.shape[1]
+    flat = out.view(-1)
+    lanes = torch.arange(r, device=regs.device, dtype=torch.int64)
+    for s in range(0, src.shape[0], PROPAGATE_CHUNK):
+        keep = mask[s:s + PROPAGATE_CHUNK, None]
+        rows = torch.where(keep, regs[src[s:s + PROPAGATE_CHUNK]],
+                           torch.zeros((), dtype=regs.dtype,
+                                       device=regs.device))
+        idx = dst[s:s + PROPAGATE_CHUNK].to(torch.int64)[:, None] * r + lanes
+        flat.scatter_reduce_(0, idx.reshape(-1), rows.reshape(-1),
+                             reduce="amax")
+    return out
+
+
+def hll_estimate_ref(regs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Harmonic statistics (sum 2^-reg, zero count) per sketch row.
+
+    regs: uint8[N, r] -> (float32[N], float32[N]).
+    """
+    n = regs.shape[0]
+    s = torch.empty(n, dtype=torch.float32, device=regs.device)
+    z = torch.empty(n, dtype=torch.float32, device=regs.device)
+    for i in range(0, n, ROW_CHUNK):
+        blk = regs[i:i + ROW_CHUNK]
+        s[i:i + ROW_CHUNK] = torch.exp2(-blk.to(torch.float32)).sum(dim=-1)
+        z[i:i + ROW_CHUNK] = (blk == 0).sum(dim=-1).to(torch.float32)
+    return s, z
+
+
+def _pair_histograms(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
+    """Eq. 19 count statistics of row pairs: int64 (C, r) x2 -> f32[C, 5, q+2].
+
+    Order: [c_a_lt, c_a_gt, c_b_lt, c_b_gt, c_eq] as in
+    ``repro.kernels.ref.ertl_stats_ref``; values outside [0, q+2) land in
+    no bin, like a one-hot over ``arange(q + 2)``.
+    """
+    c, nb = a.shape[0], q + 2
+    base = torch.arange(c, device=a.device, dtype=torch.int64)[:, None] * nb
+    lt, gt, eq = a < b, a > b, a == b
+    out = torch.zeros((5, c * nb), dtype=torch.float32, device=a.device)
+    for j, (vals, cond) in enumerate(((a, lt), (a, gt), (b, gt), (b, lt),
+                                      (a, eq))):
+        hit = cond & (vals < nb)
+        idx = base + torch.clamp(vals, max=nb - 1)
+        out[j].index_add_(0, idx.reshape(-1), hit.reshape(-1).to(torch.float32))
+    return out.view(5, c, nb).transpose(0, 1)
+
+
+def intersection_stats_ref(regs: torch.Tensor, pa: torch.Tensor,
+                           pb: torch.Tensor, q: int,
+                           ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused pair statistics: Eq. 19 histograms + (s, z) for A, B, A ∪ B.
+
+    regs: uint8[V, r]; pa/pb: int[B] -> (float32[B, 5, q+2],
+    float32[B, 3, 2]) with the (s, z) panel stacked [A, B, A ∪ B].
+    """
+    n = pa.shape[0]
+    stats = torch.empty((n, 5, q + 2), dtype=torch.float32, device=regs.device)
+    sz = torch.empty((n, 3, 2), dtype=torch.float32, device=regs.device)
+    for s in range(0, n, PAIR_CHUNK):
+        a = regs[pa[s:s + PAIR_CHUNK]]
+        b = regs[pb[s:s + PAIR_CHUNK]]
+        stats[s:s + PAIR_CHUNK] = _pair_histograms(
+            a.to(torch.int64), b.to(torch.int64), q)
+        for col, panel in enumerate((a, b, torch.maximum(a, b))):
+            s_, z_ = hll_estimate_ref(panel)
+            sz[s:s + PAIR_CHUNK, col, 0] = s_
+            sz[s:s + PAIR_CHUNK, col, 1] = z_
+    return stats, sz

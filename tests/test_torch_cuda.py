@@ -1,0 +1,137 @@
+"""The CUDA kernels against their plain versions, on the card.
+
+These need a CUDA card and ``nvcc``; without a card each test skips with
+the reason (decided inside the fixture, never at import). On a machine
+with one, from the repository root:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+(``--noconftest`` because the suite's conftest imports the JAX package,
+which the port's machine need not have; this file imports only the port.)
+Shapes sweep what ``chip_smoke.py``'s single p=8 run does not: other
+precisions, ragged sizes, masked edges, self-loops, duplicate edges and
+register bytes above q + 1. Tolerances as in ``tests/test_torch_kernels.py``:
+panels, histograms and zero counts exact, harmonic sums ``rtol=1e-6``.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import _build, hll_accumulate, hll_estimate  # noqa: E402
+from repro_torch.kernels import hll_propagate, intersection_stats  # noqa: E402
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    """The card, or a skip when there is none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels run only on the card)")
+    return torch.device("cuda")
+
+
+def _panel(rng, v, p, hi, dev):
+    return torch.from_numpy(rng.integers(0, hi, (v, 1 << p))
+                            .astype(np.uint8)).to(dev)
+
+
+def _launched(name, fn):
+    before = _build.launch_counts()[name]
+    out = fn()
+    torch.cuda.synchronize()
+    assert _build.launch_counts()[name] == before + 1
+    return out
+
+
+@pytest.mark.parametrize("p,seed", [(4, 0), (8, 1), (12, 7), (16, 12345)])
+def test_accumulate_matches_plain(dev, p, seed):
+    rng = np.random.default_rng(p)
+    v, e = 333, 50_001
+    regs = _panel(rng, v, p, 4, dev)
+    rows = torch.from_numpy(rng.integers(0, v, e).astype(np.int32)).to(dev)
+    keys = torch.from_numpy(rng.integers(0, 2 ** 32, e, dtype=np.uint64)
+                            .astype(np.uint32)).to(dev)
+    mask = torch.from_numpy(rng.random(e) > 0.2).to(dev)
+    want = hll_accumulate.plain(regs.clone(), rows, keys, mask, p=p,
+                                seed=seed)
+    got = _launched("hll_accumulate", lambda: hll_accumulate.hll_accumulate(
+        regs, rows, keys, mask, p=p, seed=seed))
+    assert got.data_ptr() == regs.data_ptr()  # in place
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("p", [3, 4, 8, 12])
+@pytest.mark.parametrize("n", [1, 1001])
+def test_estimate_matches_plain(dev, p, n):
+    rng = np.random.default_rng(p * 10 + n)
+    regs = _panel(rng, n, p, 66, dev)
+    regs[: n // 3] = 0
+    got = _launched("hll_estimate_stats",
+                    lambda: hll_estimate.hll_estimate_stats(regs))
+    want = hll_estimate.plain(regs)
+    assert torch.equal(got[:, 1], want[:, 1])
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("p", [3, 8, 12])
+def test_propagate_matches_plain(dev, p):
+    rng = np.random.default_rng(p)
+    v, e = 500, 20_000
+    regs = _panel(rng, v, p, 40, dev)
+    regs[rng.random(v) < 0.3] = 0  # empty sketches
+    src = rng.integers(0, v, e).astype(np.int32)
+    dst = rng.integers(0, v, e).astype(np.int32)
+    dst[::7] = src[::7]  # self-loops
+    src[1::9], dst[1::9] = 5, 9  # one heavily duplicated edge
+    src_t, dst_t = (torch.from_numpy(x).to(dev) for x in (src, dst))
+    got = _launched("hll_propagate",
+                    lambda: hll_propagate.hll_propagate(regs, src_t, dst_t))
+    assert torch.equal(got, hll_propagate.plain(regs, src_t, dst_t))
+    assert not torch.equal(got, regs)
+
+
+def test_propagate_reads_the_frozen_panel(dev):
+    regs = torch.zeros((4, 16), dtype=torch.uint8, device=dev)
+    regs[2, 5] = 9
+    src = torch.tensor([2, 1], dtype=torch.int32, device=dev)
+    dst = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    one = hll_propagate.hll_propagate(regs, src, dst)
+    assert int(one[1, 5]) == 9 and int(one[0, 5]) == 0
+
+
+@pytest.mark.parametrize("p", [4, 8, 16])
+@pytest.mark.parametrize("b", [1, 77, 4096])
+def test_intersection_stats_match_plain(dev, p, b):
+    rng = np.random.default_rng(p * 100 + b)
+    v, q = 257, 64 - p
+    regs = _panel(rng, v, p, 70, dev)  # bytes above q + 1 count in no bin
+    ids = torch.from_numpy(rng.integers(0, v, (b, 2)).astype(np.int32)).to(dev)
+    pa, pb = ids[:, 0].contiguous(), ids[:, 1].contiguous()
+    st, sz = _launched("intersection_stats",
+                       lambda: intersection_stats.intersection_stats(
+                           regs, pa, pb, q))
+    st_p, sz_p = intersection_stats.plain(regs, pa, pb, q)
+    assert torch.equal(st, st_p)
+    assert torch.equal(sz[..., 1], sz_p[..., 1])
+    torch.testing.assert_close(sz[..., 0], sz_p[..., 0], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("estimator", ["flajolet", "beta"])
+def test_engine_on_the_card_matches_the_cpu(dev, estimator):
+    """Both estimators read the estimate kernel's (s, z) on the card."""
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.graph import generators
+    edges = generators.rmat(9, 8, seed=2)
+    n = 1 << 9
+    cfg = HLLConfig(p=8, estimator=estimator)
+    cpu = engine.build(edges, n, cfg, device="cpu")
+    card = engine.build(edges, n, cfg)  # default device: the card
+    assert card.device.type == "cuda"
+    assert torch.equal(card.regs.cpu(), cpu.regs)
+    est = _launched("hll_estimate_stats", card.degrees)
+    np.testing.assert_allclose(est, cpu.degrees(), rtol=1e-5)
+    np.testing.assert_allclose(card.neighborhood(3)[0], cpu.neighborhood(3)[0],
+                               rtol=1e-5)
