@@ -8,20 +8,31 @@ Run from the repository root, on a machine with one CUDA card:
 Phases, one line each:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build: the four CUDA kernels of ``src/repro_torch/csrc`` from source;
+2. build: the six CUDA kernels of ``src/repro_torch/csrc`` from source;
 3. graph: RMAT scale 22, edge factor 16, seed 0 (4.19M vertices, about
-   60M undirected edges, the Graph500 Kronecker parameters);
+   64M undirected edges, the Graph500 Kronecker parameters), and the
+   4,096 union sets ``{v} ∪ N(v)`` of seeded random vertices of degree
+   1-63;
 4. kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main path's shapes, with its time, the plain version's,
    the bound (bytes this run's data needs over 3.35 TB/s) and, for
    accumulate, the ``scatter_reduce_`` yardstick;
 5. main path, with launch counters zeroed just before: ``engine.build``,
    ``degrees`` (mean relative error against exact degrees),
-   ``neighborhood(3)`` and ``intersection_size`` on 16,384 edge pairs
-   with the MLE; every kernel must have launched; then the share of
-   those pairs that the reference's Hessian-overflow flag holds still;
-6. small reference: the same path at RMAT scale 10 on the CPU (plain
-   versions) and on the card, which must agree.
+   ``neighborhood(3)``, ``intersection_size`` on 16,384 edge pairs with
+   the MLE, ``union_size`` on the 4,096 sets (each must equal hop 2 of
+   ``neighborhood(3)`` for its vertex) and ``query_batch`` over all three
+   (bit for bit the per-kind answers); every kernel of the path must have
+   launched; then the share of the pairs that the reference's
+   Hessian-overflow flag holds still;
+6. triangles, with launch counters zeroed just before: RMAT scale 20,
+   edge factor 16, seed 0, ``engine.build`` and
+   ``triangle_heavy_hitters(k=100, mode="edge")`` (finite values in
+   descending order, real edges, a positive total, ``ertl_stats`` and
+   ``hll_estimate_stats`` launched);
+7. small reference: the same queries at RMAT scale 10 on the CPU (plain
+   versions) and on the card, which must agree, and the top-20 recall of
+   the estimated triangle heavy hitters against exact counts (reported).
 
 Then the kernels JSON line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
@@ -41,7 +52,10 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SCALE, EDGE_FACTOR, SEED, P = 22, 16, 0, 8
 N_PAIRS = 16384
+N_SETS = 4096
+ERTL_PAIRS = 1 << 18
 T_MAX = 3
+TRI_SCALE, TRI_K = 20, 100
 DEVICE = "cuda"
 
 SOURCES = {
@@ -53,6 +67,10 @@ SOURCES = {
                       "src/repro/kernels/hll_propagate.py:55"),
     "intersection_stats": ("src/repro_torch/csrc/intersection_stats.cu",
                            "src/repro/kernels/intersection_stats.py:75"),
+    "union_estimate_stats": ("src/repro_torch/csrc/union_estimate.cu",
+                             "src/repro/kernels/union_estimate.py:69"),
+    "ertl_stats": ("src/repro_torch/csrc/ertl_stats.cu",
+                   "src/repro/kernels/ertl_stats.py:55"),
 }
 
 
@@ -93,11 +111,33 @@ def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
-def compare_kernels(torch, np, edges, n, pairs, report):
+def neighbor_sets(np, edges, n, rng):
+    """``{v} ∪ N(v)`` for N_SETS seeded random vertices of degree 1-63.
+
+    One vectorised pass over the edge list: the directed entries whose
+    source was chosen are sorted by the source's slot and split per set.
+    Returns (vertices int64[N_SETS], list of int64 id arrays).
+    """
+    deg = np.bincount(edges.ravel(), minlength=n)
+    verts = rng.choice(np.flatnonzero((deg >= 1) & (deg <= 63)), N_SETS,
+                       replace=False)
+    slot = np.full(n, -1, np.int64)
+    slot[verts] = np.arange(N_SETS)
+    src = np.concatenate([edges[:, 0], edges[:, 1]])
+    dst = np.concatenate([edges[:, 1], edges[:, 0]])
+    keep = slot[src] >= 0
+    order = np.argsort(slot[src[keep]], kind="stable")
+    nbrs = dst[keep][order].astype(np.int64)
+    parts = np.split(nbrs, np.cumsum(deg[verts])[:-1])
+    return verts, [np.concatenate([[v], part]) for v, part in zip(verts, parts)]
+
+
+def compare_kernels(torch, np, edges, n, pairs, sets, report):
     """Phase 4: each kernel against its plain version on the card."""
     from repro_torch.engine import plans
-    from repro_torch.kernels import hll_accumulate, hll_estimate
+    from repro_torch.kernels import ertl_stats, hll_accumulate, hll_estimate
     from repro_torch.kernels import hll_propagate, intersection_stats
+    from repro_torch.kernels import union_estimate
     from repro_torch.core.hashing import bucket_rho
 
     dev = torch.device(DEVICE)
@@ -201,10 +241,49 @@ def compare_kernels(torch, np, edges, n, pairs, report):
     report("intersection_stats", err, ms, plain_ms,
            bound_ms(rows_read * r + 8 * b + 4 * b * (5 * (q + 2) + 6)), None,
            f"{b} pairs, {rows_read} distinct rows")
+
+    # union_estimate_stats: the main path's padded set panel
+    ids_np, mask_np = plans.pad_sets(sets)
+    ids = torch.from_numpy(ids_np).to(dev)
+    mask = torch.from_numpy(mask_np).to(dev)
+    out_k = union_estimate.union_estimate_stats(regs_k, ids, mask)
+    out_p = union_estimate.plain(regs_k, ids, mask)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k[:, 1], out_p[:, 1]) or not torch.allclose(
+            out_k[:, 0], out_p[:, 0], rtol=1e-6, atol=0):
+        fail("union_estimate_stats differs from its plain version")
+    err = float((out_k - out_p).abs().max())
+    ms = cuda_ms(torch, lambda: union_estimate.union_estimate_stats(
+        regs_k, ids, mask), 20)
+    plain_ms = cuda_ms(torch, lambda: union_estimate.plain(regs_k, ids, mask),
+                       3)
+    rows_read = np.unique(ids_np[mask_np]).size
+    report("union_estimate_stats", err, ms, plain_ms,
+           bound_ms(rows_read * r + 5 * ids_np.size + 8 * ids_np.shape[0]),
+           None, f"{ids_np.shape[0]} x {ids_np.shape[1]} set panel, "
+                 f"{int(mask_np.sum())} members, {rows_read} distinct rows")
+
+    # ertl_stats: 2^18 edge pairs gathered from the built panel
+    pick = np.random.default_rng(SEED + 1).choice(len(edges), ERTL_PAIRS,
+                                                  replace=False)
+    ends = torch.from_numpy(edges[pick].astype(np.int64)).to(dev)
+    a, b = regs_k[ends[:, 0]], regs_k[ends[:, 1]]
+    st_k = ertl_stats.ertl_stats(a, b, q)
+    st_p = ertl_stats.plain(a, b, q)
+    torch.cuda.synchronize()
+    if not torch.equal(st_k, st_p):
+        fail("ertl_stats differs from its plain version")
+    err = float((st_k - st_p).abs().max())
+    del st_k, st_p
+    ms = cuda_ms(torch, lambda: ertl_stats.ertl_stats(a, b, q), 10)
+    plain_ms = cuda_ms(torch, lambda: ertl_stats.plain(a, b, q), 3)
+    report("ertl_stats", err, ms, plain_ms,
+           bound_ms(ERTL_PAIRS * (2 * r + 4 * 5 * (q + 2))), None,
+           f"{ERTL_PAIRS} gathered edge pairs")
     return regs_k.cpu()
 
 
-def main_path(torch, np, edges, n, pairs, panel):
+def main_path(torch, np, edges, n, pairs, verts, sets, panel):
     """Phase 5: the port's main path through its entry points."""
     from repro_torch import engine
     from repro_torch.core.hll import HLLConfig, rel_std
@@ -256,22 +335,92 @@ def main_path(torch, np, edges, n, pairs, panel):
                             f"{np.median(e):.3f}")
     if est.shape != (len(pairs),) or not np.isfinite(est).all():
         fail("intersection estimates are not finite or have the wrong shape")
+
+    uni, _ = step("union_size", lambda: eng.union_size(sets),
+                  lambda u: f", {len(sets)} sets of up to "
+                            f"{max(map(len, sets))} ids, median "
+                            f"{np.median(u):.3f}")
+    hop2 = loc[1][verts]
+    if uni.shape != (len(sets),) or not np.allclose(uni, hop2, rtol=1e-5,
+                                                    atol=0):
+        fail("union_size({v} u N(v)) differs from hop 2 of neighborhood")
+    log(f"main: union_size: max relative difference to hop 2 "
+        f"{float(np.max(np.abs(uni - hop2) / hop2)):.3e}")
+
+    batch, _ = step("query_batch", lambda: eng.query_batch(
+        degrees=True, vertex_sets=sets, pairs=pairs, method="mle"))
+    if not (np.array_equal(batch["degrees"], deg)
+            and np.array_equal(batch["union"], uni)
+            and np.array_equal(batch["intersection"], est)):
+        fail("query_batch differs from the per-kind answers")
+    log("main: query_batch: degrees, union and intersection equal the "
+        "per-kind answers bit for bit")
     counts = _build.launch_counts()
     log(f"kernels: {counts}")
-    if min(counts.values()) == 0:
-        fail(f"a main-path kernel never launched: {counts}")
+    missing = [k for k, c in counts.items() if c == 0 and k != "ertl_stats"]
+    if missing:
+        fail(f"main-path kernels never launched: {missing}")
     overflow_share(torch, eng, pairs)
     return counts
 
 
-def overflow_share(torch, eng, pairs):
-    """Share of the main path's pairs whose Newton step the reference's
-    Hessian-overflow flag rejects (kept for parity with the JAX package)."""
+def triangle_path(torch, np):
+    """Phase 6: triangle heavy hitters at RMAT scale TRI_SCALE."""
+    from repro_torch import engine
+    from repro_torch.core import degreesketch
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.graph import generators
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    edges = generators.rmat(TRI_SCALE, EDGE_FACTOR, seed=SEED)
+    n = 1 << TRI_SCALE
+    log(f"triangles: graph rmat scale {TRI_SCALE} edge factor {EDGE_FACTOR} "
+        f"seed {SEED}: n={n}, m={len(edges)}, "
+        f"{time.perf_counter() - t0:.1f} s on the host")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = engine.build(edges, n, HLLConfig(p=P), device=DEVICE)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    total, vals, top = eng.triangle_heavy_hitters(TRI_K, mode="edge")
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    log(f"triangles: build {t_build:.3f} s; triangle_heavy_hitters(k={TRI_K},"
+        f" edge): {secs:.3f} s ({len(edges) / secs / 1e6:.3f} M edges/s), "
+        f"edge block {degreesketch.EDGE_BLOCK}, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches "
+        f"{counts}, total {total:.1f}, top values {vals[:3].tolist()}")
+    if not (np.isfinite(vals).all() and len(vals) == TRI_K
+            and np.all(np.diff(vals) <= 0)):
+        fail("triangle heavy hitters are not finite and descending")
+    keys = edges[:, 0].astype(np.int64) * n + edges[:, 1]
+    if not np.isin(top[:, 0].astype(np.int64) * n + top[:, 1], keys).all():
+        fail("triangle heavy hitters returned a pair that is not an edge")
+    if not total > 0:
+        fail(f"triangle total {total} is not positive")
+    if counts["ertl_stats"] == 0 or counts["hll_estimate_stats"] == 0:
+        fail(f"the triangle path skipped its kernels: {counts}")
+    sample = np.random.default_rng(SEED).choice(len(edges), N_PAIRS,
+                                                replace=False)
+    overflow_share(torch, eng, edges[sample], "triangles", iters=30)
+    return counts
+
+
+def overflow_share(torch, eng, pairs, label="main: intersection_size",
+                   iters=None):
+    """Share of ``pairs`` whose Newton step the reference's Hessian-overflow
+    flag rejects (kept for parity with the JAX package)."""
     from repro_torch.core import intersection
     ids = torch.as_tensor(pairs).to(eng.device, torch.int32)
     stats, sz = eng.kernels.intersection_stats(eng.regs, ids, eng.cfg)
-    start, end = intersection.hessian_overflow_share(stats, sz, eng.cfg)
-    log(f"main: intersection_size: Hessian-overflow flag on {start:.4f} of "
+    start, end = intersection.hessian_overflow_share(
+        stats, sz, eng.cfg, iters or intersection.NEWTON_ITERS)
+    log(f"{label}: Hessian-overflow flag on {start:.4f} of "
         f"{len(pairs)} pairs at the initializer, {end:.4f} at the final "
         f"iterate")
 
@@ -305,12 +454,58 @@ def small_reference(torch, np):
         b = gpu.intersection_size(sample, method=method, iters=10)
         if not np.all(np.abs(a - b) <= rtol * (np.abs(a) + scale)):
             fail(f"small reference: intersection {method} differs")
+    rng = np.random.default_rng(4)
+    sets = [rng.integers(0, n, rng.integers(1, 70)) for _ in range(100)]
+    checks["union_size"] = (cpu.union_size(sets), gpu.union_size(sets), 1e-5)
     for name, (a, b, rtol) in checks.items():
         if not np.allclose(a, b, rtol=rtol, atol=0):
             fail(f"small reference: {name} differs between CPU and card")
+    batch = gpu.query_batch(degrees=True, vertex_sets=sets, pairs=sample,
+                            iters=10)
+    if not (np.array_equal(batch["degrees"], gpu.degrees())
+            and np.array_equal(batch["union"], gpu.union_size(sets))
+            and np.array_equal(batch["intersection"], gpu.intersection_size(
+                sample, iters=10))):
+        fail("small reference: query_batch differs from per-kind answers")
+    small_triangles(np, cpu, gpu, edges, n)
     log("small reference: rmat10 p=8 CPU plain vs card kernels: registers "
-        "identical, degrees/neighborhood rtol 1e-5, intersection ie 1e-5 / "
-        "mle 1e-4")
+        "identical, degrees/neighborhood/union rtol 1e-5, intersection ie "
+        "1e-5 / mle 1e-4, query_batch bit for bit, triangles 1e-4 of the "
+        "estimates' scale")
+
+
+def small_triangles(np, cpu, gpu, edges, n):
+    """Both triangle modes, CPU against card (1e-4 of each edge's
+    estimates' scale, summed as the query sums them), and the top-20
+    recall against exact counts (reported, not gated)."""
+    from repro_torch.core import degreesketch as dsk
+    from repro_torch.graph import exact
+
+    est = dsk.edge_triangle_estimates(
+        dsk.DegreeSketch(regs=cpu.regs, n=n, cfg=cpu.cfg), edges)
+    deg = cpu.degrees()
+    tol = 1e-4 * (np.abs(est) + 2 * (deg[edges[:, 0]] + deg[edges[:, 1]]))
+    vtol = (np.bincount(edges[:, 0], tol, n)
+            + np.bincount(edges[:, 1], tol, n)) / 2
+    truth = exact.exact_edge_triangles(n, edges)
+    want_ids = {"edge": edges, "vertex": np.arange(n)}
+    want_top = {"edge": truth, "vertex": exact.exact_vertex_triangles(
+        n, edges, truth)}
+    recall = {}
+    for mode, atol in (("edge", tol.max()), ("vertex", vtol.max())):
+        c_tot, c_vals, _ = cpu.triangle_heavy_hitters(20, mode=mode)
+        g_tot, g_vals, g_ids = gpu.triangle_heavy_hitters(20, mode=mode)
+        if not (abs(c_tot - g_tot) <= tol.sum() / 3
+                and np.allclose(g_vals, c_vals, rtol=0, atol=atol)):
+            fail(f"small reference: {mode} triangles differ")
+        exact_top = want_ids[mode][np.argsort(-want_top[mode])[:20]]
+        hits = {tuple(np.atleast_1d(x)) for x in g_ids} & {
+            tuple(np.atleast_1d(x)) for x in exact_top}
+        recall[mode] = len(hits) / 20
+    log(f"small reference: triangles: estimated total {g_tot:.1f}, exact "
+        f"{exact.exact_global_triangles(n, edges, truth)}; top-20 recall "
+        f"against exact counts: edges {recall['edge']:.2f}, vertices "
+        f"{recall['vertex']:.2f} (reported, not gated)")
 
 
 def main() -> int:
@@ -346,8 +541,10 @@ def main() -> int:
     n = 1 << SCALE
     rng = np.random.default_rng(SEED)
     pairs = edges[rng.choice(len(edges), N_PAIRS, replace=False)]
+    verts, sets = neighbor_sets(np, edges, n, rng)
     log(f"graph: rmat scale {SCALE} edge factor {EDGE_FACTOR} seed {SEED}: "
-        f"n={n}, m={len(edges)} undirected edges, "
+        f"n={n}, m={len(edges)} undirected edges, {N_SETS} sets of "
+        f"{min(map(len, sets))}-{max(map(len, sets))} ids, "
         f"{time.perf_counter() - t0:.1f} s on the host")
 
     rows = []
@@ -363,11 +560,13 @@ def main() -> int:
             f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms (bytes), library "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; {shape}")
 
-    panel = compare_kernels(torch, np, edges, n, pairs, report)
-    counts = main_path(torch, np, edges, n, pairs, panel)
+    panel = compare_kernels(torch, np, edges, n, pairs, sets, report)
+    counts = main_path(torch, np, edges, n, pairs, verts, sets, panel)
+    del edges, panel
+    tri_counts = triangle_path(torch, np)
     small_reference(torch, np)
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row["launches"] = counts[row["name"]] + tri_counts[row["name"]]
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(card)

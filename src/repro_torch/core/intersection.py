@@ -6,7 +6,8 @@ Under Poissonization a register exposed to rate ``t`` has
 sketches A, B split into disjoint rates (|A\\B|, |B\\A|, |A ∩ B|) the joint
 register pmf is closed-form, and the log-likelihood depends on a register
 pair only through the Eq. 19 count histograms that the
-``intersection_stats`` kernel emits. The MLE maximizes it over
+``intersection_stats`` kernel (pairs gathered from a panel) or the
+``ertl_stats`` kernel (rows given, :func:`mle_cardinalities`) emits. The MLE maximizes it over
 ``theta = log(lambda)`` with a damped Newton iteration of fixed length.
 The JAX package takes the gradient and 3x3 Hessian by ``jax.grad`` /
 ``jax.hessian`` under ``vmap`` inside a ``lax.scan``; here they are
@@ -26,13 +27,25 @@ import torch
 
 from repro_torch.core import hll
 from repro_torch.core.hll import HLLConfig
+from repro_torch.kernels import ops
 
-__all__ = ["log_likelihood", "mle_from_stats", "estimate_from_pair_stats",
+__all__ = ["ertl_stats", "log_likelihood", "mle_cardinalities",
+           "mle_intersection", "mle_from_stats", "estimate_from_pair_stats",
            "hessian_overflow_share", "NEWTON_ITERS"]
 
 #: Newton iterations when the caller passes none (``_NEWTON_ITERS`` in JAX)
 NEWTON_ITERS = 50
 _TINY = 1e-38
+
+
+def ertl_stats(a: torch.Tensor, b: torch.Tensor,
+               cfg: HLLConfig) -> torch.Tensor:
+    """Eq. 19 count statistics of register rows a, b: ``uint8[E, r]``.
+
+    Returns ``float32[E, 5, q+2]`` stacked as [c_a_lt, c_a_gt, c_b_lt,
+    c_b_gt, c_eq], from the ``ertl_stats`` kernel.
+    """
+    return ops.ertl_stats(a.contiguous(), b.contiguous(), cfg)
 
 
 def _survival_weights(q: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -244,6 +257,28 @@ def _initial_theta(ea: torch.Tensor, eb: torch.Tensor,
     a0 = torch.clamp(ea - x0, min=1.0)
     b0 = torch.clamp(eb - x0, min=1.0)
     return torch.log(torch.stack([a0, b0, x0], dim=-1))
+
+
+def mle_cardinalities(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
+                      iters: int = NEWTON_ITERS,
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """MLE (|A\\B|, |B\\A|, |A ∩ B|) for register rows a, b: ``uint8[E, r]``.
+
+    The Eq. 19 histograms come from the ``ertl_stats`` kernel; the
+    initializer's |A|, |B| and |A ∪ B| from the estimate kernel's
+    ``(s, z)`` over a, b and their lane-wise max, as the JAX package
+    takes ``hll.estimate`` of a, b and ``hll.merge(a, b)``.
+    """
+    a, b = a.contiguous(), b.contiguous()
+    ea, eb, eu = (ops.estimate(rows, cfg)
+                  for rows in (a, b, torch.maximum(a, b)))
+    return mle_from_stats(ertl_stats(a, b, cfg), ea, eb, eu, cfg, iters)
+
+
+def mle_intersection(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
+                     iters: int = NEWTON_ITERS) -> torch.Tensor:
+    """|A ∩ B| via the joint MLE, the paper's T̃(xy) primitive (Eq. 10)."""
+    return mle_cardinalities(a, b, cfg, iters)[2]
 
 
 def hessian_overflow_share(stats: torch.Tensor, sz: torch.Tensor,

@@ -1,4 +1,6 @@
-// Shared device helpers for the DegreeSketch kernels (sm_90a).
+// Shared device helpers for the DegreeSketch kernels (sm_90a): the hash,
+// exact 2^-x, the per-word (s, z) terms, the Eq. 19 histogram update, the
+// row clamp and warp sums.
 //
 // The hash is the one of repro/core/hashing.py, computed natively in
 // uint32_t: two murmur3 finalizers with distinct seed mixing, cross-mixed,
@@ -44,7 +46,49 @@ __device__ __forceinline__ float exp2_neg(uint32_t x) {
                    : exp2f(-static_cast<float>(x));
 }
 
+// Adds the 2^-x terms and zero count of the four register bytes of w;
+// T is float or double (each term is exact in both).
+template <typename T>
+__device__ __forceinline__ void add_word_stats(uint32_t w, T* s, int* z) {
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const uint32_t x = (w >> (8 * k)) & 0xFFu;
+    *s += exp2_neg(x);
+    *z += x == 0u;
+  }
+}
+
+// Counts one register pair (x, y) into a 5 * nb slice of Eq. 19
+// histograms, ordered [x<y at x, x>y at x, y<x at y, y>x at y, x==y at x],
+// with shared-memory integer atomics. Values >= nb count in no bin, as a
+// one-hot over arange(nb) would.
+__device__ __forceinline__ void eq19_add(uint32_t x, uint32_t y, int nb,
+                                         int* hist) {
+  const uint32_t bins = static_cast<uint32_t>(nb);
+  if (x < y) {
+    if (x < bins) atomicAdd(hist + x, 1);
+    if (y < bins) atomicAdd(hist + 3 * nb + y, 1);
+  } else if (x > y) {
+    if (x < bins) atomicAdd(hist + nb + x, 1);
+    if (y < bins) atomicAdd(hist + 2 * nb + y, 1);
+  } else if (x < bins) {
+    atomicAdd(hist + 4 * nb + x, 1);
+  }
+}
+
+// Row index clamped into [0, n_rows), as a jnp gather clamps: callers
+// validate ids, so this only keeps a stray id in bounds.
+__device__ __forceinline__ int64_t clamp_row(int64_t i, int64_t n_rows) {
+  return i < 0 ? 0 : (i >= n_rows ? n_rows - 1 : i);
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
   return v;

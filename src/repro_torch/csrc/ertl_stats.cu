@@ -1,0 +1,68 @@
+// ertl_stats: Eq. 19 count statistics of given register-row pairs.
+//
+// Replaces repro/kernels/ertl_stats.py `ertl_stats` (the Pallas kernel).
+// For each pair i of rows (a[i], b[i]) of two uint8[E, r] panels it writes
+// stats[i, 5, q+2], the count histograms over register value k,
+//   [a<b counted at a, a>b at a, b<a at b, b>a at b, a==b at a],
+// the O(E * r) front of every T~(xy) estimate of the triangle queries
+// (core/intersection.py mle_cardinalities). Counts are integers, so the
+// result equals the plain version exactly.
+//
+// What bounds it on the H100: bytes. 2r bytes are read and 5(q+2) floats
+// written per pair: at p=8 that is 512 B in and 1,160 B out, so the
+// output dominates; each register costs a few integer operations and at
+// most two shared-memory atomics.
+//
+// Design: one warp per pair, eight pairs per block, as intersection_stats
+// but on rows the caller has already gathered. Each lane reads both rows
+// a 32-bit word at a time (the wrapper guarantees r >= 8 and 8-byte
+// aligned panels), counts each register pair into a 5*(q+2) slice of
+// shared-memory integer histograms (repro::eq19_add, shared with
+// intersection_stats.cu), and the warp writes the slice out as float32.
+// Register values outside [0, q+2) count in no bin.
+#include "common.cuh"
+
+namespace {
+
+constexpr int kWarps = 8;
+
+__global__ void ertl_stats_kernel(const uint8_t* __restrict__ a,
+                                  const uint8_t* __restrict__ b,
+                                  float* __restrict__ stats, int64_t n_pairs,
+                                  int r, int q) {
+  extern __shared__ int hist_all[];
+  const int nb = q + 2;
+  const int hsize = 5 * nb;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  int* hist = hist_all + warp * hsize;
+  const int64_t pair = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (pair >= n_pairs) return;  // whole warp leaves; no block barrier below
+  for (int i = lane; i < hsize; i += 32) hist[i] = 0;
+  __syncwarp();
+  const uint32_t* wa = reinterpret_cast<const uint32_t*>(a + pair * r);
+  const uint32_t* wb = reinterpret_cast<const uint32_t*>(b + pair * r);
+  for (int i = lane; i < (r >> 2); i += 32) {
+    const uint32_t va = wa[i];
+    const uint32_t vb = wb[i];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      repro::eq19_add((va >> (8 * k)) & 0xFFu, (vb >> (8 * k)) & 0xFFu, nb,
+                      hist);
+  }
+  __syncwarp();
+  float* out = stats + pair * hsize;
+  for (int i = lane; i < hsize; i += 32) out[i] = static_cast<float>(hist[i]);
+}
+
+}  // namespace
+
+extern "C" int ertl_stats(const uint8_t* a, const uint8_t* b, float* stats,
+                          int64_t n_pairs, int r, int q, cudaStream_t stream) {
+  if (n_pairs == 0) return 0;
+  const size_t smem = static_cast<size_t>(kWarps) * 5 * (q + 2) * sizeof(int);
+  const int64_t blocks = (n_pairs + kWarps - 1) / kWarps;
+  ertl_stats_kernel<<<static_cast<unsigned int>(blocks), kWarps * 32, smem,
+                      stream>>>(a, b, stats, n_pairs, r, q);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -20,15 +20,6 @@
 
 namespace {
 
-__device__ __forceinline__ void add_word(uint32_t w, float* s, int* z) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint32_t x = (w >> (8 * k)) & 0xFFu;
-    *s += repro::exp2_neg(x);
-    *z += x == 0u;
-  }
-}
-
 __global__ void hll_estimate_kernel(const uint8_t* __restrict__ regs,
                                     float* __restrict__ out, int64_t n_rows,
                                     int r) {
@@ -43,8 +34,8 @@ __global__ void hll_estimate_kernel(const uint8_t* __restrict__ regs,
     const uint2* v = reinterpret_cast<const uint2*>(base);
     for (int i = lane; i < (r >> 3); i += 32) {
       const uint2 w = v[i];
-      add_word(w.x, &s, &z);
-      add_word(w.y, &s, &z);
+      repro::add_word_stats(w.x, &s, &z);
+      repro::add_word_stats(w.y, &s, &z);
     }
     s = repro::warp_sum(s);
     z = repro::warp_sum(z);

@@ -17,18 +17,15 @@
 // wrapper guarantees r >= 8 and an 8-byte-aligned panel), so each row is
 // read once. The five histograms are built with shared-memory
 // integer atomics in a 5*(q+2) slice per warp (q + 2 = 66 - p bins, sized
-// at launch from q), then written out as float32; the three (s, z) pairs
-// are reduced with warp shuffles. Register values outside [0, q+2) count
-// in no bin, as a one-hot over arange(q + 2) would.
+// at launch from q; repro::eq19_add, shared with ertl_stats.cu), then
+// written out as float32; the three (s, z) pairs are reduced with warp
+// shuffles. Register values outside [0, q+2) count in no bin, as a
+// one-hot over arange(q + 2) would.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
-
-__device__ __forceinline__ int64_t clamp_row(int64_t i, int64_t n_rows) {
-  return i < 0 ? 0 : (i >= n_rows ? n_rows - 1 : i);
-}
 
 struct PairSums {
   float sa, sb, su;
@@ -37,15 +34,7 @@ struct PairSums {
 
 __device__ __forceinline__ void add_pair(uint32_t x, uint32_t y, int nb,
                                          int* hist, PairSums* t) {
-  if (x < y) {
-    if (x < static_cast<uint32_t>(nb)) atomicAdd(hist + x, 1);
-    if (y < static_cast<uint32_t>(nb)) atomicAdd(hist + 3 * nb + y, 1);
-  } else if (x > y) {
-    if (x < static_cast<uint32_t>(nb)) atomicAdd(hist + nb + x, 1);
-    if (y < static_cast<uint32_t>(nb)) atomicAdd(hist + 2 * nb + y, 1);
-  } else if (x < static_cast<uint32_t>(nb)) {
-    atomicAdd(hist + 4 * nb + x, 1);
-  }
+  repro::eq19_add(x, y, nb, hist);
   const uint32_t u = x > y ? x : y;
   t->sa += repro::exp2_neg(x);
   t->sb += repro::exp2_neg(y);
@@ -74,8 +63,8 @@ __global__ void intersection_stats_kernel(const uint8_t* __restrict__ regs,
   __syncwarp();
   // callers validate ids; clamp like a jnp gather so a stray id stays in
   // bounds
-  const int64_t ia = clamp_row(pa[pair], n_rows);
-  const int64_t ib = clamp_row(pb[pair], n_rows);
+  const int64_t ia = repro::clamp_row(pa[pair], n_rows);
+  const int64_t ib = repro::clamp_row(pb[pair], n_rows);
   const uint8_t* a = regs + ia * r;
   const uint8_t* b = regs + ib * r;
   PairSums t = {0.f, 0.f, 0.f, 0, 0, 0};

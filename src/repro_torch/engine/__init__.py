@@ -6,14 +6,18 @@
     eng = engine.build(edges, n, HLLConfig(p=8))   # on the card
     deg = eng.degrees()
     loc, glob = eng.neighborhood(t_max=3)
+    u = eng.union_size([ids_a, ids_b])              # batched |∪ N(x)|
     t = eng.intersection_size(edge_pairs)          # batched T̃(xy)
+    out = eng.query_batch(degrees=True, vertex_sets=sets, pairs=edge_pairs)
+    total, vals, top = eng.triangle_heavy_hitters(100, mode="edge")
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, which runs every kernel's plain PyTorch version); with
 ``device=None`` and no card they raise ``RuntimeError`` rather than
 carry on on the CPU. Only the local backend, the HLL family and the byte
-layout are ported so far; ``engine.convert`` carries a JAX engine's state
-across as numpy arrays.
+layout are ported so far (checkpoints, ``merge``, snapshots, serving,
+ADS and the sharded backend are not; see ROADMAP.md); ``engine.convert``
+carries a JAX engine's state across as numpy arrays.
 """
 from __future__ import annotations
 

@@ -6,17 +6,25 @@ device. ``ingest(edge_block)`` folds edge blocks into it in place
 (Algorithm 1); queries answer from it:
 
 * ``degrees()``                          — d̃(x) for all x
+* ``union_size(vertex_sets)``            — batched |∪ N(x)| (§6)
 * ``intersection_size(pairs, method=)``  — batched |N(x) ∩ N(y)| (Eq. 10)
-* ``neighborhood(t_max)``                — Algorithm 2, served from the
+* ``query_batch(...)``                   — a mixed degrees/union/
+  intersection batch in one call, answers equal to the per-kind methods'
+  bit for bit
+* ``neighborhood(t_max, schedule=)``     — Algorithm 2, served from the
   t-hop panel cache: materialized ``D^t`` panels keyed by the engine's
   ``version``, extended incrementally and dropped on the next ingest, so a
-  repeat on an unchanged engine runs zero propagate passes
+  repeat on an unchanged engine runs zero propagate passes. Every name in
+  ``SCHEDULES`` is accepted; a single-device backend runs one dataflow
+  for all of them, as the JAX local backend does
+* ``triangle_heavy_hitters(k, mode=)``   — Algorithms 4/5
 
-Not ported yet, and absent rather than stubbed: ``union_size`` and
-``query_batch`` (ROADMAP Queue B item 5), ``merge``, snapshots, replicas,
-persistence, triangle and distance queries.
+Not ported yet, and absent rather than stubbed: ``merge``, snapshots,
+replicas, persistence and the ADS distance queries (ROADMAP).
 
-Ids are validated on the host before anything reaches the device.
+Query kinds the engine's sketch family does not serve raise
+:class:`UnsupportedQuery` up front. Ids are validated on the host before
+anything reaches the device.
 """
 from __future__ import annotations
 
@@ -30,7 +38,17 @@ import torch
 from repro_torch.engine import plans
 from repro_torch.kernels import registry
 
-__all__ = ["SketchEngine", "resolve_device", "validate_t_max", "pad_vertices"]
+__all__ = ["SketchEngine", "UnsupportedQuery", "SCHEDULES", "resolve_device",
+           "validate_t_max", "pad_vertices"]
+
+#: Algorithm 2 schedules every backend accepts; the sharded backend (not
+#: ported yet) picks its dataflow by them, a single-device one ignores them
+SCHEDULES = ("auto", "ring", "ring_overlap", "allgather")
+
+
+class UnsupportedQuery(ValueError):
+    """Raised for a query kind the engine's sketch family cannot answer."""
+
 
 def resolve_device(device=None) -> torch.device:
     """The engine device: ``None`` means the card, which must be present.
@@ -219,6 +237,35 @@ class SketchEngine(abc.ABC):
         est = self.kernels.estimate_rows(self._regs, self.cfg)
         return est.cpu().numpy()[: self.n]
 
+    def _require_kind(self, kind: str) -> None:
+        """Gate a query kind on the family's declared query surface."""
+        if kind not in self.family.query_kinds:
+            raise UnsupportedQuery(
+                f"query kind {kind!r} is not served by sketch family "
+                f"{self.family.name!r} (supported kinds: "
+                f"{', '.join(self.family.query_kinds)})")
+
+    def union_size(self, vertex_sets):
+        """|∪_{x in S} N(x)| for one vertex set or a batch of sets.
+
+        Accepts a 1-D array (returns a float), a list of 1-D arrays
+        (ragged batch) or a 2-D array; batches return float32 arrays [B].
+        Non-integer ids and ids outside [0, n) raise ``ValueError``.
+        """
+        self._require_kind("union")
+        sets, scalar = plans.split_sets(vertex_sets, self.n)
+        out = self._union_presplit(sets)
+        return float(out[0]) if scalar else out
+
+    def _union_presplit(self, sets: list[np.ndarray]) -> np.ndarray:
+        """Batched union over parsed, validated id sets: one launch of the
+        fused union kernel over the padded ``(B, L)`` panel."""
+        ids, mask = plans.pad_sets(sets)
+        est = self.kernels.union_estimate(
+            self._regs, torch.from_numpy(ids).to(self.device),
+            torch.from_numpy(mask).to(self.device), self.cfg)
+        return est.cpu().numpy()[: len(sets)]
+
     def intersection_size(self, pairs, *, method: str = "mle",
                           iters: int | None = None):
         """|N(x) ∩ N(y)| for one (x, y) pair or a batch (B, 2) of pairs.
@@ -228,18 +275,76 @@ class SketchEngine(abc.ABC):
         ``"ie"`` the inclusion-exclusion baseline (Eq. 18, can be < 0).
         Vertex ids outside [0, n) raise ``ValueError``.
         """
+        self._require_kind("intersection")
+        iters = self._pair_iters(method, iters)
+        arr, scalar = plans.split_pairs(pairs, self.n)
+        out = self._intersection_presplit(arr, method, iters)
+        return float(out[0]) if scalar else out
+
+    def _pair_iters(self, method: str, iters: int | None) -> int:
+        """Validate the pair estimator and return its Newton iterations
+        (``None`` takes the family's default)."""
         if method not in ("mle", "ie"):
             raise ValueError(f"method must be 'mle' or 'ie', got {method!r}")
-        iters = self.family.default_iters if iters is None else iters
-        arr, scalar = plans.split_pairs(pairs, self.n)
+        return self.family.default_iters if iters is None else iters
+
+    def _intersection_presplit(self, arr: np.ndarray, method: str,
+                               iters: int) -> np.ndarray:
+        """Batched intersection over parsed, validated (B, 2) pairs."""
         ids, _ = plans.pad_pairs(arr)  # padding pairs (0, 0) sort last
         ids_t = torch.from_numpy(ids).to(self.device)
         stats, sz = self.kernels.intersection_stats(self._regs, ids_t,
                                                     self.cfg)
         est = self.family.estimate_from_pair_stats(stats, sz, self.cfg,
                                                    method, iters)
-        out = est.cpu().numpy()[: arr.shape[0]]
-        return float(out[0]) if scalar else out
+        return est.cpu().numpy()[: arr.shape[0]]
+
+    def query_batch(self, *, vertex_sets=None, pairs=None,
+                    degrees: bool = False, method: str = "mle",
+                    iters: int | None = None) -> dict:
+        """Answer a mixed degrees/union/intersection batch in one call.
+
+        Each kind runs the same kernels under the same padding as its
+        per-kind method, so the answers equal those of ``degrees()``,
+        ``union_size`` and ``intersection_size`` bit for bit. All inputs
+        are validated before any kernel runs.
+
+        Args:
+          vertex_sets: union input (the forms :meth:`union_size` takes),
+            or ``None`` to skip union queries.
+          pairs: intersection input (the forms of
+            :meth:`intersection_size`), or ``None`` to skip.
+          degrees: include the full d̃(x) table in the answer.
+          method / iters: the intersection estimator, one per batch.
+
+        Returns a dict with keys among ``"degrees"``, ``"union"`` and
+        ``"intersection"``, arrays shaped like the per-kind methods'
+        batched returns.
+        """
+        iters = self._pair_iters(method, iters)
+        sets = arr = None
+        if vertex_sets is not None:
+            self._require_kind("union")
+            sets, _ = plans.split_sets(vertex_sets, self.n)
+        if pairs is not None:
+            self._require_kind("intersection")
+            arr, _ = plans.split_pairs(pairs, self.n)
+        return self._query_batch_presplit(sets, arr, degrees, method, iters)
+
+    def _query_batch_presplit(self, sets, arr, want_degrees: bool,
+                              method: str, iters: int) -> dict:
+        """Mixed-kind batch over parsed inputs: ``sets`` a list of
+        validated id arrays or ``None``, ``arr`` validated (B, 2) pairs or
+        ``None``; empty inputs are skipped."""
+        out = {}
+        if want_degrees:
+            out["degrees"] = self.degrees()
+        if sets:
+            out["union"] = self._union_presplit(sets)
+        if arr is not None and len(arr):
+            out["intersection"] = self._intersection_presplit(arr, method,
+                                                              iters)
+        return out
 
     # ------------------------------------------------- t-hop panel cache
     @property
@@ -274,15 +379,16 @@ class SketchEngine(abc.ABC):
         """Algorithm 2: t-neighborhood sizes for t = 1..t_max.
 
         Returns (Ñ(x,t) float64[t_max, n], Ñ(t) float64[t_max]). The
-        engine's own registers are not changed. ``schedule`` accepts only
-        "auto" until the sharded backend, whose ring and all-gather
-        schedules it selects, is ported (ROADMAP Queue B).
+        engine's own registers are not changed. ``schedule`` is one of
+        :data:`SCHEDULES`; a single-device backend runs one dataflow and
+        gives the same answer for each, from one panel cache. Unknown
+        names raise ``ValueError``.
         """
+        self._require_kind("neighborhood")
         t_max = validate_t_max(t_max)
-        if schedule != "auto":
+        if schedule not in SCHEDULES:
             raise ValueError(
-                f"schedule must be 'auto' on the single-device backend, "
-                f"got {schedule!r}")
+                f"schedule must be one of {SCHEDULES}, got {schedule!r}")
         self._require_edges("neighborhood")
         local = np.zeros((t_max, self.n), dtype=np.float64)
         glob = np.zeros((t_max,), dtype=np.float64)
@@ -302,3 +408,9 @@ class SketchEngine(abc.ABC):
     @abc.abstractmethod
     def _propagate(self, regs: torch.Tensor) -> torch.Tensor:
         """One Algorithm 2 pass: D^t[x] = D^{t-1}[x] ∪̃ (∪̃_{xy∈E} D^{t-1}[y])."""
+
+    @abc.abstractmethod
+    def triangle_heavy_hitters(self, k: int, *, mode: str = "edge",
+                               iters: int = 30,
+                               ) -> tuple[float, np.ndarray, np.ndarray]:
+        """Algorithms 4/5: (T̃ global, top-k values, top-k edge/vertex ids)."""

@@ -4,7 +4,8 @@ The register panel lives on one device, the card unless the caller asks
 for the CPU. Ingest pushes each directed edge block through the
 accumulate kernel, updating the panel in place; a neighborhood pass runs
 the propagate kernel over the whole directed edge routing, which is built
-once per engine version and kept on the device.
+once per engine version and kept on the device. Triangle heavy hitters
+run the family's per-edge MLE over the ingested edge list.
 """
 from __future__ import annotations
 
@@ -99,3 +100,16 @@ class LocalEngine(SketchEngine):
                                        for x in routing)
         src, dst = self._prop_routing
         return self.kernels.propagate(regs, src, dst)
+
+    def triangle_heavy_hitters(self, k, *, mode="edge", iters=30):
+        """Algorithms 4/5 on one device (see the base class).
+
+        ``mode="edge"`` returns the top-k edges by T̃(xy), ``"vertex"``
+        the top-k vertices by T̃(x); routed through the sketch family
+        (``family.triangle_local``). An engine built without edges raises
+        ``ValueError``.
+        """
+        self._require_kind("triangle")
+        edges = self._require_edges("triangle_heavy_hitters")
+        return self.family.triangle_local(self._regs, self.n, self.cfg,
+                                          edges, k, mode, iters)

@@ -9,13 +9,16 @@ host-side contract every query keeps:
   out-of-range id and a torch gather raises or faults; neither may be the
   check, so an out-of-range id raises ``ValueError`` here first;
 * pair batches pad to power-of-two buckets with validity masks, and
-  padding pairs point at row 0; the caller drops their answers.
+  padding pairs point at row 0; the caller drops their answers;
+* set batches pad to power-of-two ``(B, L)`` buckets; padding slots are
+  masked and merge nothing, so they never pull row 0 into a union.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["bucket", "require_integer_ids", "split_pairs", "pad_pairs"]
+__all__ = ["bucket", "require_integer_ids", "split_sets", "pad_sets",
+           "normalize_sets", "split_pairs", "pad_pairs"]
 
 
 def bucket(size: int, minimum: int = 8) -> int:
@@ -45,6 +48,62 @@ def _validate_ids(arr: np.ndarray, n: int | None, query: str) -> None:
         raise ValueError(
             f"{query} got vertex ids [{lo}, {hi}] outside the engine's "
             f"universe [0, {n})")
+
+
+def split_sets(vertex_sets, n: int | None = None,
+               ) -> tuple[list[np.ndarray], bool]:
+    """Parse union-query input into (list of validated 1-D int64 id arrays,
+    scalar).
+
+    Accepts a single 1-D array of vertex ids (one set, scalar result), a
+    list or tuple of 1-D arrays (ragged batch) or a 2-D array (rectangular
+    batch). Dtypes and ids are validated against ``[0, n)`` here, on the
+    host.
+    """
+    if isinstance(vertex_sets, (list, tuple)):
+        raws = [np.asarray(s).ravel() for s in vertex_sets]
+        for s in raws:
+            require_integer_ids(s, "union_size vertex ids")
+        sets = [s.astype(np.int64) for s in raws]
+        scalar = False
+    else:
+        arr = np.asarray(vertex_sets)
+        require_integer_ids(arr, "union_size vertex ids")
+        if arr.ndim == 1:
+            sets, scalar = [arr.astype(np.int64)], True
+        elif arr.ndim == 2:
+            sets, scalar = list(arr.astype(np.int64)), False
+        else:
+            raise ValueError(f"vertex_sets must be 1-D, 2-D or a list "
+                             f"of 1-D arrays, got ndim={arr.ndim}")
+    if not sets:
+        raise ValueError("union_size needs at least one vertex set")
+    for s in sets:
+        _validate_ids(s, n, "union_size")
+    return sets, scalar
+
+
+def pad_sets(sets: list[np.ndarray]) -> tuple[np.ndarray, np.ndarray]:
+    """Pad parsed id sets to bucketed (ids int32[B', L], mask bool[B', L]).
+
+    Padding slots hold id 0 and are masked out, never merged.
+    """
+    longest = max((len(s) for s in sets), default=1)
+    ids = np.zeros((bucket(len(sets)), bucket(max(longest, 1))), np.int32)
+    mask = np.zeros(ids.shape, bool)
+    for i, s in enumerate(sets):
+        ids[i, : len(s)] = s
+        mask[i, : len(s)] = True
+    return ids, mask
+
+
+def normalize_sets(vertex_sets, n: int | None = None,
+                   ) -> tuple[np.ndarray, np.ndarray, int, bool]:
+    """Union-query input to bucketed (ids, mask, n_real, scalar):
+    :func:`split_sets` then :func:`pad_sets`."""
+    sets, scalar = split_sets(vertex_sets, n)
+    ids, mask = pad_sets(sets)
+    return ids, mask, len(sets), scalar
 
 
 def split_pairs(pairs, n: int | None = None) -> tuple[np.ndarray, bool]:

@@ -1,1 +1,2 @@
-"""Graph inputs: seeded generators and edge-block padding (numpy only)."""
+"""Graph inputs: seeded generators, edge-block padding and exact triangle
+counts (numpy only)."""

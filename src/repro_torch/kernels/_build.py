@@ -49,6 +49,10 @@ KERNELS = {
     "hll_propagate": (_P, _P, _P, _P, _I64, _I64, _I32, _P),
     # regs, pa, pb, stats, sz, n_pairs, n_rows, r, q, stream
     "intersection_stats": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
+    # regs, ids, mask, out, n_sets, n_rows, lanes, r, stream
+    "union_estimate_stats": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
+    # a, b, stats, n_pairs, r, q, stream
+    "ertl_stats": (_P, _P, _P, _I64, _I32, _I32, _P),
 }
 
 _LAUNCHES = {name: 0 for name in KERNELS}

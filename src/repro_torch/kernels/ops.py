@@ -8,7 +8,11 @@
 * estimate: the kernel's ``(s, z)`` are combined by the config's
   estimator (Flajolet, ``ops.py:208-224``, or LogLogBeta);
 * intersection_stats: pair lanes ``(B, 2)`` split into the two endpoint
-  vectors; padding pairs gather row 0 and the caller drops their answers.
+  vectors; padding pairs gather row 0 and the caller drops their answers;
+* union_estimate: padding slots of the ``(B, L)`` set panel are masked
+  and merge nothing; the kernel's ``(s, z)`` are combined by the config's
+  estimator, ``ops.py:247-263``;
+* ertl_stats: row pairs already gathered by the caller, ``ops.py:331``.
 
 The CUDA kernels need no block padding (each masks its own ragged edge),
 and their launch shapes are constants in ``csrc/``; the autotune table of
@@ -20,13 +24,16 @@ import torch
 
 from repro_torch.core import hll
 from repro_torch.core.hll import HLLConfig
+from repro_torch.kernels.ertl_stats import ertl_stats as _ertl_stats
 from repro_torch.kernels.hll_accumulate import hll_accumulate
 from repro_torch.kernels.hll_estimate import hll_estimate_stats
 from repro_torch.kernels.hll_propagate import hll_propagate
 from repro_torch.kernels.intersection_stats import (
     intersection_stats as _intersection_stats)
+from repro_torch.kernels.union_estimate import union_estimate_stats
 
-__all__ = ["accumulate", "propagate", "estimate", "intersection_stats"]
+__all__ = ["accumulate", "propagate", "estimate", "union_estimate",
+           "intersection_stats", "ertl_stats"]
 
 
 def accumulate(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
@@ -52,9 +59,23 @@ def estimate(regs: torch.Tensor, cfg: HLLConfig,
     return hll.estimate_from_stats(stats[:, 0], stats[:, 1], cfg)
 
 
+def union_estimate(regs: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
+                   cfg: HLLConfig, layout: str = "byte") -> torch.Tensor:
+    """|∪ N(x)| per row of a padded ``(ids int32[B, L], mask bool[B, L])``
+    set panel, by ``cfg.estimator``; masked lanes merge nothing."""
+    stats = union_estimate_stats(regs, ids, mask, layout=layout)
+    return hll.estimate_from_stats(stats[:, 0], stats[:, 1], cfg)
+
+
 def intersection_stats(regs: torch.Tensor, pairs: torch.Tensor,
                        cfg: HLLConfig, layout: str = "byte",
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused T̃(xy) pair statistics over ``(B, 2)`` int32 pair lanes."""
     return _intersection_stats(regs, pairs[:, 0].contiguous(),
                                pairs[:, 1].contiguous(), cfg.q, layout=layout)
+
+
+def ertl_stats(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
+               layout: str = "byte") -> torch.Tensor:
+    """Eq. 19 statistics float32[E, 5, q+2] for paired rows uint8[E, r]."""
+    return _ertl_stats(a, b, cfg.q, layout=layout)

@@ -15,8 +15,9 @@ from __future__ import annotations
 import torch
 
 __all__ = ["hll_accumulate_ref", "hll_propagate_ref", "hll_estimate_ref",
-           "intersection_stats_ref", "EDGE_CHUNK", "ROW_CHUNK",
-           "PROPAGATE_CHUNK", "PAIR_CHUNK"]
+           "union_estimate_ref", "intersection_stats_ref", "ertl_stats_ref",
+           "EDGE_CHUNK", "ROW_CHUNK", "PROPAGATE_CHUNK", "PAIR_CHUNK",
+           "UNION_CHUNK_BYTES"]
 
 #: edges per scatter-max step of the accumulate reference
 EDGE_CHUNK = 1 << 20
@@ -25,8 +26,10 @@ ROW_CHUNK = 1 << 16
 #: edges per gather/scatter step of the propagate reference (each step
 #: holds a (chunk, r) row panel and its int64 flat indices)
 PROPAGATE_CHUNK = 1 << 16
-#: pairs per step of the intersection-statistics reference
+#: pairs per step of the intersection- and Eq. 19-statistics references
 PAIR_CHUNK = 1 << 14
+#: gathered member-row bytes per step of the union reference
+UNION_CHUNK_BYTES = 1 << 26
 
 
 def hll_accumulate_ref(regs: torch.Tensor, rows: torch.Tensor,
@@ -85,6 +88,32 @@ def hll_estimate_ref(regs: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return s, z
 
 
+def union_estimate_ref(regs: torch.Tensor, ids: torch.Tensor,
+                       mask: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fused union statistics: (s, z) of the masked lane-wise row max.
+
+    regs: uint8[V, r]; ids: int[B, L]; mask: bool[B, L] ->
+    (float32[B], float32[B]), L >= 1. Masked lanes merge the empty row,
+    never the row their id names (padding ids are 0); a fully masked set
+    row reduces to the empty sketch, ``(s, z) = (r, r)``. ``s`` is summed
+    in float64 and rounded once, as the kernel sums it: a merged row holds
+    mostly large register values, where a float32 running sum drifts.
+    """
+    b, lanes = ids.shape
+    r = regs.shape[1]
+    s = torch.empty(b, dtype=torch.float32, device=regs.device)
+    z = torch.empty(b, dtype=torch.float32, device=regs.device)
+    step = max(1, UNION_CHUNK_BYTES // (lanes * r))
+    empty = torch.zeros((), dtype=regs.dtype, device=regs.device)
+    for i in range(0, b, step):
+        rows = torch.where(mask[i:i + step, :, None],
+                           regs[ids[i:i + step].to(torch.int64)], empty)
+        merged = rows.amax(dim=1)
+        s[i:i + step] = torch.exp2(-merged.to(torch.float64)).sum(dim=-1)
+        z[i:i + step] = (merged == 0).sum(dim=-1).to(torch.float32)
+    return s, z
+
+
 def _pair_histograms(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
     """Eq. 19 count statistics of row pairs: int64 (C, r) x2 -> f32[C, 5, q+2].
 
@@ -125,3 +154,19 @@ def intersection_stats_ref(regs: torch.Tensor, pa: torch.Tensor,
             sz[s:s + PAIR_CHUNK, col, 0] = s_
             sz[s:s + PAIR_CHUNK, col, 1] = z_
     return stats, sz
+
+
+def ertl_stats_ref(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
+    """Eq. 19 count statistics of given row pairs.
+
+    a, b: uint8[E, r] -> float32[E, 5, q+2], ordered [c_a_lt, c_a_gt,
+    c_b_lt, c_b_gt, c_eq]; register values outside [0, q+2) land in no
+    bin.
+    """
+    e = a.shape[0]
+    out = torch.empty((e, 5, q + 2), dtype=torch.float32, device=a.device)
+    for s in range(0, e, PAIR_CHUNK):
+        out[s:s + PAIR_CHUNK] = _pair_histograms(
+            a[s:s + PAIR_CHUNK].to(torch.int64),
+            b[s:s + PAIR_CHUNK].to(torch.int64), q)
+    return out

@@ -1,11 +1,14 @@
 """Kernel set resolution: one capability-checked bundle per engine.
 
-Port of the part of ``repro.kernels.registry`` that this slice uses. The
-JAX package registers ``(family, op, impl)`` entries and lets engines pick
-``ref`` or ``pallas``; the port has one implementation per op, the CUDA
-kernel, whose wrapper takes the plain PyTorch version for CPU tensors,
-so a :class:`KernelSet` is resolved from the config and the layout alone.
-What is not ported yet fails here, up front, naming the ROADMAP item that
+Port of the part of ``repro.kernels.registry`` that the ported queries
+use. The JAX package registers ``(family, op, impl)`` entries and lets
+engines pick ``ref`` or ``pallas``; the port has one implementation per
+op, the CUDA kernel, whose wrapper takes the plain PyTorch version for
+CPU tensors, so a :class:`KernelSet` is resolved from the config and the
+layout alone. It carries the six HLL ops of the byte layout (accumulate,
+propagate, estimate, union_estimate, intersection_stats, ertl_stats).
+What is not ported yet — the packed layout, and the ADS family with its
+``hip_delta`` kernel — fails here, up front, naming the ROADMAP item that
 brings it.
 """
 from __future__ import annotations
@@ -57,6 +60,20 @@ class KernelSet:
         """Per-row cardinality estimates honoring ``cfg.estimator``."""
         from repro_torch.kernels import ops
         return ops.estimate(regs, cfg, layout=self.layout)
+
+    def ertl_stats(self, a, b, cfg):
+        """Eq. 19 pair statistics of gathered rows (``ops.ertl_stats``)."""
+        from repro_torch.kernels import ops
+        return ops.ertl_stats(a, b, cfg, layout=self.layout)
+
+    def union_estimate(self, regs, ids, mask, cfg):
+        """Fused batched union estimates (``ops.union_estimate``).
+
+        The kernel reduces each merged row to ``(s, z)``; the combination
+        honors ``cfg.estimator`` outside it.
+        """
+        from repro_torch.kernels import ops
+        return ops.union_estimate(regs, ids, mask, cfg, layout=self.layout)
 
     def intersection_stats(self, regs, pairs, cfg):
         """Fused per-pair T̃(xy) statistics ``(stats, sz)``."""

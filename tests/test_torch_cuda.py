@@ -9,17 +9,21 @@ with one, from the repository root:
 (``--noconftest`` because the suite's conftest imports the JAX package,
 which the port's machine need not have; this file imports only the port.)
 Shapes sweep what ``chip_smoke.py``'s single p=8 run does not: other
-precisions, ragged sizes, masked edges, self-loops, duplicate edges and
-register bytes above q + 1. Tolerances as in ``tests/test_torch_kernels.py``:
-panels, histograms and zero counts exact, harmonic sums ``rtol=1e-6``.
+precisions, ragged sizes, masked edges and set lanes, self-loops,
+duplicate edges and ids, and register bytes above q + 1. Tolerances as in
+``tests/test_torch_kernels.py``: panels, histograms and zero counts
+exact, harmonic sums ``rtol=1e-6``; the card engine against the CPU
+engine as the CPU parity tests hold the port to JAX (estimates 1e-5,
+MLE 1e-4 of the estimates' scale).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import _build, hll_accumulate, hll_estimate  # noqa: E402
-from repro_torch.kernels import hll_propagate, intersection_stats  # noqa: E402
+from repro_torch.kernels import _build, ertl_stats, hll_accumulate  # noqa: E402
+from repro_torch.kernels import hll_estimate, hll_propagate  # noqa: E402
+from repro_torch.kernels import intersection_stats, union_estimate  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -116,6 +120,89 @@ def test_intersection_stats_match_plain(dev, p, b):
     assert torch.equal(st, st_p)
     assert torch.equal(sz[..., 1], sz_p[..., 1])
     torch.testing.assert_close(sz[..., 0], sz_p[..., 0], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("p", [4, 8, 16])
+@pytest.mark.parametrize("b", [1, 77, 4096])
+@pytest.mark.parametrize("lanes", [1, 64])
+def test_union_estimate_matches_plain(dev, p, b, lanes):
+    rng = np.random.default_rng(p * 1000 + b + lanes)
+    v = 257
+    regs = _panel(rng, v, p, 70, dev)
+    regs[0] = 69  # a masked lane that read its padding id 0 would show
+    ids = rng.integers(0, v, (b, lanes)).astype(np.int32)
+    lens = rng.integers(0, lanes + 1, b)
+    lens[::7] = 0  # fully masked sets
+    mask = np.arange(lanes)[None, :] < lens[:, None]
+    if lanes > 1:
+        ids[::3, 1] = ids[::3, 0]  # duplicate ids
+    ids[~mask] = 0
+    ids_t = torch.from_numpy(ids).to(dev)
+    mask_t = torch.from_numpy(mask).to(dev)
+    got = _launched("union_estimate_stats",
+                    lambda: union_estimate.union_estimate_stats(
+                        regs, ids_t, mask_t))
+    want = union_estimate.plain(regs, ids_t, mask_t)
+    assert torch.equal(got[:, 1], want[:, 1])
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-6, atol=0)
+    empty = torch.from_numpy(~mask.any(axis=1)).to(dev)
+    assert bool((got[empty] == float(1 << p)).all())
+    again = union_estimate.union_estimate_stats(regs, ids_t, mask_t)
+    assert torch.equal(again, got)  # fixed reduction order: same bits
+
+
+@pytest.mark.parametrize("p", [4, 8, 16])
+@pytest.mark.parametrize("b", [1, 77, 4096])
+def test_ertl_stats_match_plain(dev, p, b):
+    rng = np.random.default_rng(p * 100 + b + 1)
+    q = 64 - p
+    a = _panel(rng, b, p, 70, dev)  # bytes above q + 1 count in no bin
+    c = _panel(rng, b, p, 70, dev)
+    c[::5] = a[::5]
+    got = _launched("ertl_stats", lambda: ertl_stats.ertl_stats(a, c, q))
+    assert torch.equal(got, ertl_stats.plain(a, c, q))
+
+
+def test_engine_queries_on_the_card_match_the_cpu(dev):
+    """union_size, query_batch and both triangle modes: the card engine
+    against the CPU engine, each through its kernels."""
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.graph import generators
+    edges = generators.rmat(9, 8, seed=4)
+    n = 1 << 9
+    cfg = HLLConfig(p=8)
+    cpu = engine.build(edges, n, cfg, device="cpu")
+    card = engine.build(edges, n, cfg)
+    rng = np.random.default_rng(4)
+    sets = [rng.integers(0, n, rng.integers(1, 70)) for _ in range(40)]
+    uni = _launched("union_estimate_stats", lambda: card.union_size(sets))
+    np.testing.assert_allclose(uni, cpu.union_size(sets), rtol=1e-5)
+    pairs = edges[rng.choice(len(edges), 50, replace=False)]
+    batch = card.query_batch(degrees=True, vertex_sets=sets, pairs=pairs,
+                             iters=10)
+    assert np.array_equal(batch["degrees"], card.degrees())
+    assert np.array_equal(batch["union"], uni)
+    assert np.array_equal(batch["intersection"],
+                          card.intersection_size(pairs, iters=10))
+    from repro_torch.core import degreesketch as dsk
+    est = dsk.edge_triangle_estimates(
+        dsk.DegreeSketch(regs=cpu.regs, n=n, cfg=cfg), edges, iters=10)
+    deg = cpu.degrees()
+    # |A u B| <= |A| + |B|: the terms of the difference, as in the tests
+    tol = 1e-4 * (np.abs(est) + 2 * (deg[edges[:, 0]] + deg[edges[:, 1]]))
+    vtol = (np.bincount(edges[:, 0], tol, n)
+            + np.bincount(edges[:, 1], tol, n)) / 2
+    for mode, atol in (("edge", tol.max()), ("vertex", vtol.max())):
+        before = _build.launch_counts()
+        tot, vals, _ = card.triangle_heavy_hitters(10, mode=mode, iters=10)
+        after = _build.launch_counts()
+        assert after["ertl_stats"] > before["ertl_stats"]
+        assert after["hll_estimate_stats"] > before["hll_estimate_stats"]
+        w_tot, w_vals, _ = cpu.triangle_heavy_hitters(10, mode=mode,
+                                                      iters=10)
+        assert abs(tot - w_tot) <= tol.sum() / 3
+        np.testing.assert_allclose(vals, w_vals, rtol=0, atol=atol)
 
 
 @pytest.mark.parametrize("estimator", ["flajolet", "beta"])

@@ -129,6 +129,24 @@ def test_neighborhood_matches_jax_and_caches(pair):
     np.testing.assert_array_equal(got_l[0], port.degrees())
 
 
+@pytest.mark.parametrize("schedule", ["auto", "ring", "ring_overlap",
+                                      "allgather"])
+def test_neighborhood_schedules_match_jax(pair, schedule):
+    """Every schedule name the JAX engine takes answers on the local
+    backend, the same as the JAX local engine under that name and as the
+    port's "auto", from one panel cache."""
+    ref, port, *_ = pair
+    want_l, want_g = ref.neighborhood(3, schedule=schedule)
+    auto_l, auto_g = port.neighborhood(3)
+    passes = port.propagate_passes
+    got_l, got_g = port.neighborhood(3, schedule=schedule)
+    assert port.propagate_passes == passes
+    np.testing.assert_allclose(got_l, want_l, rtol=1e-5)
+    np.testing.assert_allclose(got_g, want_g, rtol=1e-5)
+    np.testing.assert_array_equal(got_l, auto_l)
+    np.testing.assert_array_equal(got_g, auto_g)
+
+
 def test_neighborhood_extends_and_invalidates():
     edges, n = _graph(8, 5)
     eng = engine.build(edges[: len(edges) // 2], n, HLLConfig(p=6),
@@ -204,10 +222,8 @@ def test_out_of_range_ids_raise():
                                      device="cpu")
     with pytest.raises(ValueError):
         eng.neighborhood(0)
-    with pytest.raises(ValueError):
+    with pytest.raises(ValueError, match="schedule"):
         eng.neighborhood(2, schedule="bogus")
-    with pytest.raises(ValueError, match="auto"):
-        eng.neighborhood(2, schedule="ring")  # needs the sharded backend
 
 
 def test_unported_options_raise():
@@ -247,4 +263,6 @@ def test_cpu_engine_launches_no_kernel():
     eng.degrees()
     eng.neighborhood(2)
     eng.intersection_size(edges[:4], method="ie")
+    eng.query_batch(degrees=True, vertex_sets=[edges[0]], pairs=edges[:2])
+    eng.triangle_heavy_hitters(3, iters=2)
     assert set(_build.launch_counts().values()) == {0}
