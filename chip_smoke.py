@@ -8,7 +8,7 @@ Run from the repository root, on a machine with one CUDA card:
 Phases, one line each:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build: the six CUDA kernels of ``src/repro_torch/csrc`` from source;
+2. build: the seven CUDA kernels of ``src/repro_torch/csrc`` from source;
 3. graph: RMAT scale 22, edge factor 16, seed 0 (4.19M vertices, about
    64M undirected edges, the Graph500 Kronecker parameters), and the
    4,096 union sets ``{v} ∪ N(v)`` of seeded random vertices of degree
@@ -16,7 +16,10 @@ Phases, one line each:
 4. kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main path's shapes, with its time, the plain version's,
    the bound (bytes this run's data needs over 3.35 TB/s) and, for
-   accumulate, the ``scatter_reduce_`` yardstick;
+   accumulate, the ``scatter_reduce_`` yardstick; ``hip_delta_rows`` on
+   ``D^1``/``D^2`` of the scale-22 panel and on a sweep of ragged row
+   counts with registers up to ``max_register`` and falling lanes, equal
+   bit for bit;
 5. main path, with launch counters zeroed just before: ``engine.build``,
    ``degrees`` (mean relative error against exact degrees),
    ``neighborhood(3)``, ``intersection_size`` on 16,384 edge pairs with
@@ -25,14 +28,31 @@ Phases, one line each:
    (bit for bit the per-kind answers); every kernel of the path must have
    launched; then the share of the pairs that the reference's
    Hessian-overflow flag holds still;
-6. triangles, with launch counters zeroed just before: RMAT scale 20,
+6. ADS, on the same graph once the main path's engine is freed, counters
+   zeroed just before: ``engine.build(..., ADSConfig(p=8),
+   family="ads")``, ``distance_histogram(6)``, ``closeness(6)``,
+   ``effective_diameter(6, q=0.9)``, each timed; histograms non-negative
+   and summing to ``glob``, ``C^1`` equal to ``degrees()``, the diameter
+   in ``[0, 6]`` and equal to the curve's; repeats run no propagate pass
+   and no kernel; ``hip_delta_rows`` launched 5 times; the per-vertex mean
+   relative error of the curve against exact ball sizes of 32 seeded
+   sources (a multi-source BFS with ``index_add_`` on the card) below
+   ``3 * rel_std(8)``;
+7. merge: the even- and odd-indexed edges built apart and merged equal
+   the one-shot ADS panel bit for bit;
+8. checkpoint: ``save`` the ADS engine under ``build/``, ``load`` it,
+   registers and ``distance_histogram(6)`` bit for bit, and a further
+   ingest into both engines gives the same registers;
+9. triangles, with launch counters zeroed just before: RMAT scale 20,
    edge factor 16, seed 0, ``engine.build`` and
    ``triangle_heavy_hitters(k=100, mode="edge")`` (finite values in
    descending order, real edges, a positive total, ``ertl_stats`` and
    ``hll_estimate_stats`` launched);
-7. small reference: the same queries at RMAT scale 10 on the CPU (plain
-   versions) and on the card, which must agree, and the top-20 recall of
-   the estimated triangle heavy hitters against exact counts (reported).
+10. small reference: the same queries at RMAT scale 10 on the CPU (plain
+    versions) and on the card, which must agree, the top-20 recall of
+    the estimated triangle heavy hitters against exact counts (reported),
+    and the ADS curve of both against each other (``rtol=1e-6``) and
+    against exact ball sizes (the tolerances of ``tests/test_ads.py``).
 
 Then the kernels JSON line, the card line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
@@ -42,6 +62,7 @@ outside the repository.
 from __future__ import annotations
 
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -56,6 +77,7 @@ N_SETS = 4096
 ERTL_PAIRS = 1 << 18
 T_MAX = 3
 TRI_SCALE, TRI_K = 20, 100
+ADS_T, ADS_SOURCES = 6, 32
 DEVICE = "cuda"
 
 SOURCES = {
@@ -71,6 +93,8 @@ SOURCES = {
                              "src/repro/kernels/union_estimate.py:69"),
     "ertl_stats": ("src/repro_torch/csrc/ertl_stats.cu",
                    "src/repro/kernels/ertl_stats.py:55"),
+    "hip_delta_rows": ("src/repro_torch/csrc/hip_delta.cu",
+                       "src/repro/kernels/hip_delta.py:39"),
 }
 
 
@@ -211,7 +235,7 @@ def compare_kernels(torch, np, edges, n, pairs, sets, report):
     err = int((prop_k.to(torch.int16) - prop_p.to(torch.int16)).abs().max())
     if err != 0:
         fail(f"hll_propagate differs from its plain version (max {err})")
-    del prop_k, prop_p
+    del prop_p
     ms = cuda_ms(torch, lambda: hll_propagate.hll_propagate(regs_k, src, dst),
                  3)
     plain_ms = cuda_ms(torch, lambda: hll_propagate.plain(regs_k, src, dst), 1)
@@ -220,6 +244,8 @@ def compare_kernels(torch, np, edges, n, pairs, sets, report):
            bound_ms(2 * n_pad * r + 8 * e_live), None,
            f"{e_live} directed edges")
     del src, dst
+    compare_hip_delta(torch, np, regs_k, prop_k, report)
+    del prop_k
 
     # intersection_stats: the main path's pairs
     ids = torch.from_numpy(plans.pad_pairs(pairs)[0]).to(dev)
@@ -281,6 +307,37 @@ def compare_kernels(torch, np, edges, n, pairs, sets, report):
            bound_ms(ERTL_PAIRS * (2 * r + 4 * 5 * (q + 2))), None,
            f"{ERTL_PAIRS} gathered edge pairs")
     return regs_k.cpu()
+
+
+def compare_hip_delta(torch, np, prev, cur, report):
+    """hip_delta_rows against its plain version: D^1 -> D^2 of the main
+    panel, then ragged row counts with registers up to max_register and
+    lanes that fell. Exact equality (both sum exactly, round once)."""
+    from repro_torch.kernels import hip_delta
+    out_k = hip_delta.hip_delta_rows(prev, cur)
+    out_p = hip_delta.plain(prev, cur)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k, out_p):
+        fail("hip_delta_rows differs from its plain version on D^1 -> D^2")
+    err = float((out_k - out_p).abs().max())
+    rows, r = prev.shape
+    grew = int((out_k > 0).sum())
+    rng = np.random.default_rng(SEED + 3)
+    for p, m in ((4, 1), (8, 33), (8, 4097), (12, 515), (16, 7)):
+        top = 65 - p
+        a = rng.integers(0, top + 1, (m, 1 << p))
+        b = np.clip(a + rng.integers(-3, 4, a.shape), 0, top)
+        a_t, b_t = (torch.from_numpy(x.astype(np.uint8)).to(DEVICE)
+                    for x in (a, b))
+        if not torch.equal(hip_delta.hip_delta_rows(a_t, b_t),
+                           hip_delta.plain(a_t, b_t)):
+            fail(f"hip_delta_rows differs from its plain version at p={p}, "
+                 f"{m} rows")
+    ms = cuda_ms(torch, lambda: hip_delta.hip_delta_rows(prev, cur), 10)
+    plain_ms = cuda_ms(torch, lambda: hip_delta.plain(prev, cur), 3)
+    report("hip_delta_rows", err, ms, plain_ms,
+           bound_ms(2 * rows * r + 4 * rows), None,
+           f"D^1 -> D^2, {rows} rows, {grew} grew; sweep of p 4-16 equal")
 
 
 def main_path(torch, np, edges, n, pairs, verts, sets, panel):
@@ -357,15 +414,182 @@ def main_path(torch, np, edges, n, pairs, verts, sets, panel):
         "per-kind answers bit for bit")
     counts = _build.launch_counts()
     log(f"kernels: {counts}")
-    missing = [k for k, c in counts.items() if c == 0 and k != "ertl_stats"]
+    missing = [k for k, c in counts.items()
+               if c == 0 and k not in ("ertl_stats", "hip_delta_rows")]
     if missing:
         fail(f"main-path kernels never launched: {missing}")
     overflow_share(torch, eng, pairs)
     return counts
 
 
+def timed(torch, fn):
+    """(result, seconds) of ``fn`` on the host clock, ending in a sync."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def exact_balls(torch, np, edges, n, sources, t_max):
+    """int64[t_max, len(sources)]: |{y : d(s, y) <= t}| counting s itself,
+    by a multi-source BFS on the card (a float reach panel [n, sources]
+    grown by ``index_add_`` over the directed edges, one hop a step)."""
+    dev = torch.device(DEVICE)
+    src = torch.from_numpy(np.concatenate([edges[:, 0], edges[:, 1]])).to(
+        dev, torch.int64)
+    dst = torch.from_numpy(np.concatenate([edges[:, 1], edges[:, 0]])).to(
+        dev, torch.int64)
+    k = len(sources)
+    reach = torch.zeros((n, k), dtype=torch.float32, device=dev)
+    reach[torch.from_numpy(sources).to(dev), torch.arange(k, device=dev)] = 1
+    sizes = []
+    chunk = 1 << 24
+    for _ in range(t_max):
+        grown = reach.clone()
+        for s0 in range(0, src.numel(), chunk):
+            grown.index_add_(0, dst[s0:s0 + chunk], reach[src[s0:s0 + chunk]])
+        reach = (grown > 0).to(torch.float32)
+        sizes.append(reach.sum(dim=0))
+    return torch.stack(sizes).to(torch.int64).cpu().numpy()
+
+
+def ads_path(torch, np, edges, n):
+    """Phase 6: the ADS family's distance queries at RMAT scale SCALE.
+
+    Returns (engine, launch counts, distance histogram)."""
+    from repro_torch import engine
+    from repro_torch.core import ads
+    from repro_torch.core.ads import ADSConfig
+    from repro_torch.kernels import _build
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    eng, t_build = timed(torch, lambda: engine.build(
+        edges, n, ADSConfig(p=P), family="ads", device=DEVICE))
+    (hist, glob), t_hist = timed(torch,
+                                 lambda: eng.distance_histogram(ADS_T))
+    hist_counts = _build.launch_counts()
+    close, t_close = timed(torch, lambda: eng.closeness(ADS_T))
+    eff, t_eff = timed(torch, lambda: eng.effective_diameter(ADS_T, q=0.9))
+    counts = _build.launch_counts()
+    log(f"ads: build {t_build:.3f} s ({len(edges) / t_build / 1e6:.2f} M "
+        f"edges/s); distance_histogram({ADS_T}) {t_hist:.3f} s, "
+        f"closeness({ADS_T}) {t_close:.4f} s, effective_diameter({ADS_T}, "
+        f"0.9) {t_eff:.4f} s = {eff:.4f}; global histogram "
+        f"{glob.tolist()}; launches {counts}")
+    if hist.shape != (ADS_T, n) or not np.isfinite(hist).all():
+        fail("ads: histograms are not finite or have the wrong shape")
+    if not ((hist >= 0).all() and np.array_equal(glob, hist.sum(axis=1))):
+        fail("ads: histograms are negative or do not sum to glob")
+    passes = eng.propagate_passes
+    deg = eng.degrees()
+    if not np.array_equal(hist[0], deg.astype(np.float64)):
+        fail("ads: C^1 differs from degrees() of the same engine")
+    curve = eng._hip_curve(ADS_T)  # the cached rows: no kernel runs
+    if not (0.0 <= eff <= ADS_T and eff == ads.effective_diameter_from_curve(
+            curve.sum(axis=1), 0.9)):
+        fail(f"ads: effective diameter {eff} is outside [0, {ADS_T}] or "
+             f"differs from the curve's")
+    if not (np.isfinite(close).all() and close.shape == (n,)):
+        fail("ads: closeness is not finite or has the wrong shape")
+    before = _build.launch_counts()
+    again, _ = eng.distance_histogram(ADS_T)
+    eng.closeness(ADS_T)
+    eng.effective_diameter(ADS_T, q=0.9)
+    if (_build.launch_counts() != before or eng.propagate_passes != passes
+            or not np.array_equal(again, hist)):
+        fail("ads: repeat queries ran kernels or changed their answers")
+    if hist_counts["hip_delta_rows"] != ADS_T - 1:
+        fail(f"ads: hip_delta_rows launched {hist_counts['hip_delta_rows']}"
+             f" times for distance_histogram({ADS_T}), not {ADS_T - 1}")
+    missing = [k for k in ("hip_delta_rows", "hll_estimate_stats",
+                           "hll_propagate", "hll_accumulate")
+               if counts[k] == 0]
+    if missing:
+        fail(f"ads: kernels never launched: {missing}")
+    log(f"ads: repeats of all three queries: 0 launches, 0 propagate "
+        f"passes; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    deg_exact = np.bincount(edges.ravel(), minlength=n)
+    rng = np.random.default_rng(SEED + 5)
+    sources = rng.choice(np.flatnonzero(deg_exact >= 1), ADS_SOURCES,
+                         replace=False)
+    balls, t_bfs = timed(torch, lambda: exact_balls(
+        torch, np, edges, n, sources, ADS_T))
+    # Algorithm 2's target: y != s within t hops, plus s itself from t = 2
+    truth = balls - 1 + (np.arange(1, ADS_T + 1) >= 2)[:, None]
+    est = curve[:, sources]
+    mre = float(np.mean(np.abs(est - truth) / truth))
+    per_hop = np.mean(np.abs(est - truth) / truth, axis=1)
+    log(f"ads: accuracy against exact balls of {ADS_SOURCES} sources "
+        f"(BFS {t_bfs:.2f} s): per-vertex mean relative error {mre:.4f} "
+        f"(limit {3 * ads.rel_std(P):.4f}), per hop "
+        f"{np.round(per_hop, 4).tolist()}, mean exact ball "
+        f"{np.round(truth.mean(axis=1), 1).tolist()}")
+    if not mre < 3 * ads.rel_std(P):
+        fail(f"ads: per-vertex error {mre:.4f} >= 3 x rel_std(p)")
+    return eng, counts, hist
+
+
+def merge_phase(torch, np, edges, n, ads_eng):
+    """Phase 7: two half-graph engines merged equal the one-shot panel."""
+    from repro_torch import engine
+    from repro_torch.core.ads import ADSConfig
+    from repro_torch.kernels import _build
+
+    _build.reset_launch_counts()
+    (left, right), t_build = timed(torch, lambda: tuple(
+        engine.build(edges[i::2], n, ADSConfig(p=P), device=DEVICE)
+        for i in (0, 1)))
+    _, t_merge = timed(torch, lambda: left.merge(right))
+    counts = _build.launch_counts()
+    if not torch.equal(left.regs, ads_eng.regs) or left.m != len(edges):
+        fail("merge: the merged halves differ from the one-shot build")
+    log(f"merge: two half builds {t_build:.3f} s, merge {t_merge:.4f} s; "
+        f"registers equal the one-shot build bit for bit; launches {counts}")
+    return counts
+
+
+def checkpoint_phase(torch, np, n, ads_eng, hist):
+    """Phase 8: save, load, repeat and resume the scale-22 ADS engine."""
+    from repro_torch import engine
+    from repro_torch.kernels import _build
+
+    _build.reset_launch_counts()
+    path = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        step, t_save = timed(torch, lambda: ads_eng.save(str(path)))
+        written = sum(f.stat().st_size for f in Path(step).iterdir())
+        back, t_load = timed(torch, lambda: engine.load(str(path),
+                                                        device=DEVICE))
+        if not (torch.equal(back.regs, ads_eng.regs) and back.m == ads_eng.m
+                and back.family.name == "ads"):
+            fail("checkpoint: the loaded engine differs from the saved one")
+        (again, _), t_hist = timed(torch,
+                                   lambda: back.distance_histogram(ADS_T))
+        if not np.array_equal(again, hist):
+            fail("checkpoint: distance_histogram differs after load")
+        block = np.random.default_rng(SEED + 7).integers(0, n, (1 << 20, 2))
+        back.ingest(block)
+        ads_eng.ingest(block)
+        if not torch.equal(back.regs, ads_eng.regs) or back.m != ads_eng.m:
+            fail("checkpoint: ingest after load does not resume")
+        counts = _build.launch_counts()
+        log(f"checkpoint: save {t_save:.3f} s ({written / 2**20:.1f} MiB "
+            f"written), load {t_load:.3f} s, registers equal; "
+            f"distance_histogram({ADS_T}) after load {t_hist:.3f} s, bit for "
+            f"bit; 2^20 further edges into both: registers equal; launches "
+            f"{counts}")
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    return counts
+
+
 def triangle_path(torch, np):
-    """Phase 6: triangle heavy hitters at RMAT scale TRI_SCALE."""
+    """Phase 9: triangle heavy hitters at RMAT scale TRI_SCALE."""
     from repro_torch import engine
     from repro_torch.core import degreesketch
     from repro_torch.core.hll import HLLConfig
@@ -426,7 +650,7 @@ def overflow_share(torch, eng, pairs, label="main: intersection_size",
 
 
 def small_reference(torch, np):
-    """Phase 6: CPU (plain versions) and card agree at RMAT scale 10."""
+    """Phase 10: CPU (plain versions) and card agree at RMAT scale 10."""
     from repro_torch import engine
     from repro_torch.core.hll import HLLConfig
     from repro_torch.graph import generators
@@ -468,10 +692,46 @@ def small_reference(torch, np):
                 sample, iters=10))):
         fail("small reference: query_batch differs from per-kind answers")
     small_triangles(np, cpu, gpu, edges, n)
+    small_ads(torch, np, edges, n)
     log("small reference: rmat10 p=8 CPU plain vs card kernels: registers "
         "identical, degrees/neighborhood/union rtol 1e-5, intersection ie "
         "1e-5 / mle 1e-4, query_batch bit for bit, triangles 1e-4 of the "
         "estimates' scale")
+
+
+def small_ads(torch, np, edges, n):
+    """The ADS curve from the CPU's plain versions and from the card
+    (``rtol=1e-6``), both against exact ball sizes with the tolerances of
+    ``tests/test_ads.py``."""
+    from repro_torch import engine
+    from repro_torch.core import ads
+    from repro_torch.core.ads import ADSConfig
+    from repro_torch.graph import exact
+
+    cpu = engine.build(edges, n, ADSConfig(p=P), device="cpu")
+    gpu = engine.build(edges, n, ADSConfig(p=P), device=DEVICE)
+    curves = {"cpu": cpu._hip_curve(ADS_T), "card": gpu._hip_curve(ADS_T)}
+    if not np.allclose(curves["card"], curves["cpu"], rtol=1e-6, atol=0):
+        fail("small reference: the ADS curve differs between CPU and card")
+    truth = exact.neighborhood_truth(n, edges, ADS_T)
+    truth_glob = truth.sum(axis=1).astype(np.float64)
+    eff_exact = ads.effective_diameter_from_curve(truth_glob, 0.9)
+    tol = ads.rel_std(P)
+    mask = truth > 0
+    for name, curve in curves.items():
+        glob = curve.sum(axis=1)
+        g_mre = float(np.mean(np.abs(glob - truth_glob)
+                              / np.maximum(truth_glob, 1.0)))
+        v_mre = float(np.mean(np.abs(curve[mask] - truth[mask])
+                              / truth[mask]))
+        eff = ads.effective_diameter_from_curve(glob, 0.9)
+        log(f"small reference: ads {name}: global MRE {g_mre:.4f} (< "
+            f"{2 * tol:.4f}), per-vertex {v_mre:.4f} (< {3 * tol:.4f}), "
+            f"effective diameter {eff:.4f} vs exact {eff_exact:.4f}")
+        if not (g_mre < 2 * tol and v_mre < 3 * tol
+                and abs(eff - eff_exact) < 0.5):
+            fail(f"small reference: the {name} ADS curve misses the exact "
+                 f"ball sizes")
 
 
 def small_triangles(np, cpu, gpu, edges, n):
@@ -561,12 +821,16 @@ def main() -> int:
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; {shape}")
 
     panel = compare_kernels(torch, np, edges, n, pairs, sets, report)
-    counts = main_path(torch, np, edges, n, pairs, verts, sets, panel)
-    del edges, panel
-    tri_counts = triangle_path(torch, np)
+    phases = [main_path(torch, np, edges, n, pairs, verts, sets, panel)]
+    del panel
+    ads_eng, ads_counts, hist = ads_path(torch, np, edges, n)
+    phases += [ads_counts, merge_phase(torch, np, edges, n, ads_eng),
+               checkpoint_phase(torch, np, n, ads_eng, hist)]
+    del edges, ads_eng
+    phases.append(triangle_path(torch, np))
     small_reference(torch, np)
     for row in rows:
-        row["launches"] = counts[row["name"]] + tri_counts[row["name"]]
+        row["launches"] = sum(c[row["name"]] for c in phases)
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(card)

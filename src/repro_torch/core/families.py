@@ -1,34 +1,65 @@
-"""The HLL sketch family: estimator math bound to the engine's needs.
+"""The sketch families, HLL and ADS: estimator math bound to the engine.
 
-Port of the HLL half of ``repro.core.families``: the engine reaches the
-family-specific math (empty tables, the pair estimator tail, triangle
-counting) and the query kinds the family serves through this object.
-The ADS family is not ported yet (ROADMAP Queue A item 12);
-``kernels.registry.resolve`` refuses it.
+Port of ``repro.core.families``: the engine reaches the family-specific
+math (empty tables, config (de)serialization, the pair estimator tail,
+triangle counting, the HIP curve math) and the query kinds each family
+serves through these objects, found by name in ``kernels.registry``.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from repro_torch.core import ads as ads_mod
 from repro_torch.core import degreesketch as dsk
 from repro_torch.core import hll as hll_mod
 from repro_torch.core import intersection
 
-__all__ = ["HLLFamily", "HLL"]
+__all__ = ["HLLFamily", "ADSFamily", "HLL", "ADS"]
 
 
-class HLLFamily:
+class _Family:
+    """What both families share: config (de)serialization for checkpoint
+    manifests and the default config.
+
+    Attributes every family defines:
+      name: registry coordinate ("hll" | "ads").
+      config_cls: the frozen config dataclass.
+      layouts: register-panel layouts the family's semantics tolerate.
+      query_kinds: the query kinds the engine may answer for this family.
+      default_iters: Newton iterations of the intersection MLE by default
+        (``None`` for a family without one).
+    """
+
+    name = ""
+    config_cls = None
+    layouts = ("byte",)
+    query_kinds = ()
+    default_iters = None
+
+    def default_config(self):
+        """A default-constructed config of this family."""
+        return self.config_cls()
+
+    def config_dict(self, cfg) -> dict:
+        """JSON-ready config fields for checkpoint manifests."""
+        return {"p": cfg.p, "seed": cfg.seed, "estimator": cfg.estimator}
+
+    def config_from_dict(self, d: dict):
+        """Rebuild a config from :meth:`config_dict` output."""
+        return self.config_cls(**d)
+
+
+class HLLFamily(_Family):
     """HyperLogLog: the paper's cardinality-sketch instantiation.
 
-    Attributes:
-      name: registry coordinate.
-      config_cls: the frozen config dataclass.
-      query_kinds: the query kinds the engine may answer for this family.
-      default_iters: Newton iterations of the intersection MLE by default.
+    Both register layouts suit its semantics; the port serves the byte
+    layout so far (``kernels.registry.resolve`` refuses packed).
     """
 
     name = "hll"
     config_cls = hll_mod.HLLConfig
+    layouts = ("byte", "packed")
     query_kinds = ("degrees", "union", "intersection", "mixed",
                    "neighborhood", "triangle")
     default_iters = intersection.NEWTON_ITERS
@@ -54,5 +85,44 @@ class HLLFamily:
         raise ValueError(f"mode must be 'edge' or 'vertex', got {mode!r}")
 
 
-#: the built-in family instance
+class ADSFamily(_Family):
+    """All-Distances Sketches with batch-HIP estimators (``core.ads``).
+
+    The register geometry and merge semantics of HLL, so ADS tables ride
+    the same accumulate and propagate kernels and the engine's t-hop
+    panel cache, but its queries read the hop sequence through HIP
+    curves: distance histograms, closeness and effective diameter. Byte
+    layout only: packed 4-bit lanes saturate at 15 and would cap the
+    ``2**x`` inverse change probabilities.
+    """
+
+    name = "ads"
+    config_cls = ads_mod.ADSConfig
+    layouts = ("byte",)
+    query_kinds = ("degrees", "neighborhood", "distance_histogram",
+                   "closeness", "effective_diameter")
+
+    def empty_table(self, n: int, cfg, layout: str = "byte",
+                    device: torch.device | str = "cpu") -> torch.Tensor:
+        """Zeroed uint8[n, r] register table on ``device`` (byte only)."""
+        if layout != "byte":
+            raise ValueError(
+                f"ADS register rows are byte-layout only, got {layout!r}")
+        return torch.zeros((n, cfg.r), dtype=torch.uint8, device=device)
+
+    def hip_histogram(self, curve: np.ndarray) -> np.ndarray:
+        """Per-hop distance histogram h^t = C^t - C^{t-1} (``core.ads``)."""
+        return ads_mod.distance_histogram(curve)
+
+    def hip_closeness(self, curve: np.ndarray) -> np.ndarray:
+        """Closeness centralities from the cumulative curve (``core.ads``)."""
+        return ads_mod.closeness_from_curve(curve)
+
+    def hip_effective_diameter(self, glob: np.ndarray, q: float) -> float:
+        """Interpolated effective diameter at quantile ``q`` (``core.ads``)."""
+        return ads_mod.effective_diameter_from_curve(glob, q)
+
+
+#: the built-in family instances
 HLL = HLLFamily()
+ADS = ADSFamily()

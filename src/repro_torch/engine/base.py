@@ -18,9 +18,15 @@ device. ``ingest(edge_block)`` folds edge blocks into it in place
   ``SCHEDULES`` is accepted; a single-device backend runs one dataflow
   for all of them, as the JAX local backend does
 * ``triangle_heavy_hitters(k, mode=)``   — Algorithms 4/5
+* ``distance_histogram / closeness / effective_diameter`` — HIP-curve
+  distance queries of the ADS family, built on the same cached D^t
+  panels as ``neighborhood``; the curve rows are cached beside them
 
-Not ported yet, and absent rather than stubbed: ``merge``, snapshots,
-replicas, persistence and the ADS distance queries (ROADMAP).
+``merge(other)`` folds another engine's sketch in by register max
+(Algorithm 6 MERGE), and ``save(path)`` writes a checkpoint in the JAX
+package's format that ``repro_torch.engine.load`` and the JAX package's
+``repro.engine.load`` both restore. Not ported yet, and absent rather
+than stubbed: snapshots and the replica panel (ROADMAP).
 
 Query kinds the engine's sketch family does not serve raise
 :class:`UnsupportedQuery` up front. Ids are validated on the host before
@@ -38,8 +44,11 @@ import torch
 from repro_torch.engine import plans
 from repro_torch.kernels import registry
 
-__all__ = ["SketchEngine", "UnsupportedQuery", "SCHEDULES", "resolve_device",
-           "validate_t_max", "pad_vertices"]
+#: the ``format`` a checkpoint of an engine records (the JAX package's)
+ENGINE_FORMAT = "degreesketch-engine-v1"
+
+__all__ = ["SketchEngine", "ENGINE_FORMAT", "UnsupportedQuery", "SCHEDULES",
+           "resolve_device", "validate_t_max", "pad_vertices"]
 
 #: Algorithm 2 schedules every backend accepts; the sharded backend (not
 #: ported yet) picks its dataflow by them, a single-device one ignores them
@@ -101,11 +110,15 @@ class _PanelSet:
 
     ``panels[i]`` is D^{i+1}: ``panels[0]`` is the accumulated panel
     itself, each later entry one more Algorithm 2 pass over it. Valid only
-    while the engine's ``version`` equals ``version``.
+    while the engine's ``version`` equals ``version``. ``aux`` holds
+    derived per-hop caches with the same lifetime: the ADS family's
+    cumulative HIP curve rows (``aux["hip"][i]`` is C^{i+1}, host
+    float64[n]).
     """
 
     version: int
     panels: list = field(default_factory=list)
+    aux: dict = field(default_factory=dict)
 
 
 class SketchEngine(abc.ABC):
@@ -142,6 +155,10 @@ class SketchEngine(abc.ABC):
         self._panel_set: _PanelSet | None = None
         #: Algorithm 2 passes run by this engine (the panel cache's proof)
         self.propagate_passes = 0
+        #: hot-vertex replica ids (int64) a loaded checkpoint carried, kept
+        #: as plain data and written back by :meth:`save`; the port builds
+        #: no replica panel yet (ROADMAP)
+        self.replica_ids: np.ndarray | None = None
 
     # ------------------------------------------------------------- state
     @property
@@ -220,15 +237,60 @@ class SketchEngine(abc.ABC):
         self._version += 1
         if self._edges0 is not None:
             self._edge_chunks.append(block)
+        self._invalidate_caches()
+        return self
+
+    def _invalidate_caches(self) -> None:
+        """Drop what derives from the panel or the edges: the propagate
+        routing, the D^t panels and their HIP curve rows."""
         self._prop_routing = None
         self._panel_set = None
-        return self
 
     def ingest_stream(self, stream) -> "SketchEngine":
         """Drain an edge stream (anything with ``all_blocks()``, such as an
         ``EdgeStream``) into the sketch, block by block."""
         for blk in stream.all_blocks():
             self.ingest(blk)
+        return self
+
+    def merge(self, other: "SketchEngine") -> "SketchEngine":
+        """Fold another engine's sketch into this one (register max).
+
+        Register max is the sketches' closed union operator (Algorithm 6
+        MERGE): merging engines that each ingested part of the edges is
+        bit-identical to one engine ingesting them all. Requires the same
+        sketch family (:class:`~repro_torch.ckpt.checkpoint.FamilyMismatch`
+        otherwise), then an identical config and vertex count
+        (``ValueError``). ``other``'s rows are copied to this engine's
+        device and maxed into its panel in place. If both engines track
+        edges the lists concatenate; if either does not, the merged
+        engine stops tracking. Bumps :attr:`version`; ``other`` is left
+        untouched. Returns self.
+        """
+        if not isinstance(other, SketchEngine):
+            raise TypeError(f"can only merge SketchEngine, got {type(other)}")
+        if other.family.name != self.family.name:
+            from repro_torch.ckpt.checkpoint import FamilyMismatch
+            raise FamilyMismatch(
+                f"merge: cannot fold a {other.family.name!r}-family engine "
+                f"into a {self.family.name!r}-family engine — identical "
+                f"register bytes, different estimator semantics")
+        if other.cfg != self.cfg:
+            raise ValueError(
+                f"merge requires an identical sketch config (same hash "
+                f"family): {self.cfg} != {other.cfg}")
+        if other.n != self.n:
+            raise ValueError(
+                f"merge requires identical vertex universe: n={self.n} vs "
+                f"n={other.n}")
+        head = self._regs[: self.n]
+        torch.maximum(head, other.regs[: self.n].to(self.device), out=head)
+        self._version += 1
+        mine, theirs = self.edges, other.edges
+        self._edges0 = (None if mine is None or theirs is None
+                        else np.concatenate([mine, theirs]))
+        self._edge_chunks = []
+        self._invalidate_caches()
         return self
 
     # ------------------------------------------------------------ queries
@@ -374,6 +436,19 @@ class SketchEngine(abc.ABC):
         self.propagate_passes += 1
         return out
 
+    def _check_hop_query(self, kind: str, t_max, schedule: str) -> int:
+        """Validate a hop query before any work: ``t_max`` an integer >= 1,
+        ``kind`` served by the family, ``schedule`` one of
+        :data:`SCHEDULES`, and an edge list to route over. Returns
+        ``t_max`` as an int."""
+        t_max = validate_t_max(t_max)
+        self._require_kind(kind)
+        if schedule not in SCHEDULES:
+            raise ValueError(
+                f"schedule must be one of {SCHEDULES}, got {schedule!r}")
+        self._require_edges(kind)
+        return t_max
+
     def neighborhood(self, t_max: int, schedule: str = "auto",
                      ) -> tuple[np.ndarray, np.ndarray]:
         """Algorithm 2: t-neighborhood sizes for t = 1..t_max.
@@ -384,12 +459,7 @@ class SketchEngine(abc.ABC):
         gives the same answer for each, from one panel cache. Unknown
         names raise ``ValueError``.
         """
-        self._require_kind("neighborhood")
-        t_max = validate_t_max(t_max)
-        if schedule not in SCHEDULES:
-            raise ValueError(
-                f"schedule must be one of {SCHEDULES}, got {schedule!r}")
-        self._require_edges("neighborhood")
+        t_max = self._check_hop_query("neighborhood", t_max, schedule)
         local = np.zeros((t_max, self.n), dtype=np.float64)
         glob = np.zeros((t_max,), dtype=np.float64)
         for t, regs in enumerate(self._panels_up_to(t_max), start=1):
@@ -398,6 +468,114 @@ class SketchEngine(abc.ABC):
             local[t - 1] = est
             glob[t - 1] = est.sum()
         return local, glob
+
+    # --------------------------------------------- HIP distance queries
+    def _hip_curve(self, t_max: int) -> np.ndarray:
+        """Cumulative batch-HIP curve C^t float64[t_max, n] (ADS family).
+
+        C^1 is the plain row estimate of D^1; each later hop adds the
+        ``hip_delta`` increments of D^{t-1} -> D^t and floors at the plain
+        estimate of D^t (``core.ads``). Rows are cached in the panel set's
+        ``aux["hip"]`` beside the panels they derive from, so a repeat on
+        an unchanged engine runs no kernel; rows beyond
+        :attr:`MAX_CACHED_PANELS` are computed transiently, and the
+        version bump of ingest and merge drops the cache.
+        """
+        panels = self._panels_up_to(t_max)
+        cached = self._panel_set.aux.setdefault("hip", [])
+        rows = list(cached[:t_max])
+        while len(rows) < t_max:
+            i = len(rows)  # panels[i] is D^{i+1}
+            plain = self.kernels.estimate_rows(panels[i], self.cfg)
+            plain = plain.cpu().numpy()[: self.n].astype(np.float64)
+            if i == 0:
+                cur = plain
+            else:
+                delta = self.kernels.hip_delta(panels[i - 1], panels[i])
+                delta = delta.cpu().numpy()[: self.n].astype(np.float64)
+                cur = np.maximum(rows[i - 1] + delta, plain)
+            rows.append(cur)
+            if len(cached) == i and i < self.MAX_CACHED_PANELS:
+                cached.append(cur)
+        return np.stack(rows)
+
+    def distance_histogram(self, t_max: int, schedule: str = "auto",
+                           ) -> tuple[np.ndarray, np.ndarray]:
+        """Per-vertex hop-distance histograms h^t(x) for t = 1..t_max.
+
+        ``h^t(x)`` estimates |{y : d(x,y) = t}|, the per-hop increments of
+        the cumulative HIP curve (ADS family only; other families raise
+        :class:`UnsupportedQuery`). Returns ``(hist float64[t_max, n],
+        glob float64[t_max])``, ``glob`` summing each hop over the
+        vertices. Served from the same cached D^t panels as
+        :meth:`neighborhood`.
+        """
+        t_max = self._check_hop_query("distance_histogram", t_max, schedule)
+        hist = self.family.hip_histogram(self._hip_curve(t_max))
+        return hist, hist.sum(axis=1)
+
+    def closeness(self, t_max: int, schedule: str = "auto") -> np.ndarray:
+        """Closeness centralities within a ``t_max``-hop horizon.
+
+        ``c(x) = reach(x) / sum_y d(x, y)`` over the vertices reached
+        within ``t_max`` hops, both from the HIP curve (ADS family only).
+        Returns float64[n]; isolated vertices get 0.
+        """
+        t_max = self._check_hop_query("closeness", t_max, schedule)
+        return self.family.hip_closeness(self._hip_curve(t_max))
+
+    def effective_diameter(self, t_max: int, q: float = 0.9,
+                           schedule: str = "auto") -> float:
+        """Effective diameter: the smallest t, linearly interpolated
+        between hops, at which a ``q`` fraction of the pairs reachable
+        within ``t_max`` hops is covered, from the global HIP curve (ADS
+        family only). ``q`` must lie in (0, 1].
+        """
+        t_max = self._check_hop_query("effective_diameter", t_max, schedule)
+        glob = self._hip_curve(t_max).sum(axis=1)
+        return float(self.family.hip_effective_diameter(glob, q))
+
+    # -------------------------------------------------------- persistence
+    def checkpoint_state(self) -> tuple[dict, dict]:
+        """The ``(tree, extra)`` pair :meth:`save` persists.
+
+        ``tree`` holds host numpy arrays: the registers sliced to the n
+        true rows, the edge list int32[m, 2] if tracked, and the replica
+        id set if a loaded checkpoint carried one. ``extra`` holds the
+        JAX package's manifest keys except ``impl``: that package reads
+        ``impl`` back as its own kernel choice (``ref`` or ``pallas``) and
+        defaults it to ``ref`` when absent, so the port records none.
+        Call it between ingest blocks, not during one.
+        """
+        tree = {"regs": self._regs[: self.n].cpu().numpy()}
+        edges = self.edges
+        if edges is not None:
+            tree["edges"] = edges
+        if self.replica_ids is not None:
+            tree["replica_ids"] = np.asarray(self.replica_ids, np.int64)
+        extra = {
+            "format": ENGINE_FORMAT,
+            "backend": self.backend,
+            "n": self.n,
+            "layout": self.layout,
+            "family": self.family.name,
+            "m_ingested": self.m,
+            "cfg": self.family.config_dict(self.cfg),
+        }
+        return tree, extra
+
+    def save(self, path: str, step: int = 0) -> str:
+        """Persist the sketch as checkpoint step ``step`` under ``path``.
+
+        One ``.npy`` per leaf plus a ``manifest.json`` whose ``extra``
+        records family, config, backend, layout and the ingested edge
+        count (:meth:`checkpoint_state`). Only the n true rows are stored.
+        Legal mid-stream: a loaded engine resumes ingestion where this
+        one stopped. Returns the step directory.
+        """
+        from repro_torch.ckpt.checkpoint import save_checkpoint
+        tree, extra = self.checkpoint_state()
+        return save_checkpoint(path, step, tree, extra=extra)
 
     # ----------------------------------------------------- backend hooks
     @abc.abstractmethod

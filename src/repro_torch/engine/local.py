@@ -15,8 +15,18 @@ import torch
 from repro_torch.engine import plans
 from repro_torch.engine.base import SketchEngine, pad_vertices, resolve_device
 from repro_torch.graph import stream as gstream
+from repro_torch.kernels import registry
 
 __all__ = ["LocalEngine"]
+
+
+def _family_table(n_pad: int, cfg, layout: str,
+                  device: torch.device) -> torch.Tensor:
+    """The zeroed register table of ``cfg``'s family, once the registry
+    has accepted ``(cfg, layout)``."""
+    kernels = registry.resolve(cfg, layout=layout)
+    return registry.family(kernels.family).empty_table(
+        n_pad, cfg, layout=layout, device=device)
 
 
 class LocalEngine(SketchEngine):
@@ -35,10 +45,7 @@ class LocalEngine(SketchEngine):
         when there is none.
         """
         dev = resolve_device(device)
-        n_pad = pad_vertices(n, 8)
-        from repro_torch.kernels import registry
-        regs = registry.family("hll").empty_table(n_pad, cfg, layout=layout,
-                                                  device=dev)
+        regs = _family_table(pad_vertices(n, 8), cfg, layout, dev)
         return cls(regs, n, cfg, np.zeros((0, 2), np.int32), layout=layout)
 
     @classmethod
@@ -68,8 +75,8 @@ class LocalEngine(SketchEngine):
             raise ValueError(
                 f"register rows have width {table.shape[1]}, but layout "
                 f"{layout!r} at p={cfg.p} needs width {cfg.r}")
-        n_pad = pad_vertices(max(n, table.shape[0]), 8)
-        full = torch.zeros((n_pad, cfg.r), dtype=torch.uint8, device=dev)
+        full = _family_table(pad_vertices(max(n, table.shape[0]), 8), cfg,
+                             layout, dev)
         full[: table.shape[0]] = table.to(dev)
         return cls(full, n, cfg, edges, layout=layout)
 

@@ -1,2 +1,2 @@
-"""Graph inputs: seeded generators, edge-block padding and exact triangle
-counts (numpy only)."""
+"""Graph inputs: seeded generators, edge-block padding, and exact triangle
+counts and t-hop neighborhood sizes (numpy only)."""

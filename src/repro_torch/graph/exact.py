@@ -1,15 +1,18 @@
-"""Exact ground truth for triangle counts (numpy).
+"""Exact ground truth: t-neighborhood sizes and triangle counts (numpy).
 
-A copy of the triangle oracles of ``repro.graph.exact`` that the port's
-tests and ``chip_smoke.py`` use, kept here so that the port never imports
-the JAX package. Fine for the moderate graphs accuracy checks use.
+A copy of the oracles of ``repro.graph.exact`` that the port's tests and
+``chip_smoke.py`` use, kept here so that the port never imports the JAX
+package. Fine for the moderate graphs accuracy checks use.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["adjacency_lists", "exact_edge_triangles", "exact_vertex_triangles",
-           "exact_global_triangles"]
+__all__ = ["adjacency_lists", "neighborhood_truth", "exact_edge_triangles",
+           "exact_vertex_triangles", "exact_global_triangles"]
+
+#: bytes of one source block's gathered reach panel in ``neighborhood_truth``
+_TRUTH_BLOCK_BYTES = 1 << 26
 
 
 def adjacency_lists(n: int, edges: np.ndarray) -> list[np.ndarray]:
@@ -27,6 +30,42 @@ def adjacency_lists(n: int, edges: np.ndarray) -> list[np.ndarray]:
         flat[cur[v]] = u
         cur[v] += 1
     return [np.sort(flat[offs[i]:offs[i + 1]]) for i in range(n)]
+
+
+def neighborhood_truth(n: int, edges: np.ndarray, t_max: int) -> np.ndarray:
+    """Ground truth matching Algorithm 2's accumulation semantics.
+
+    Returns int64[t_max, n]. The accumulated sketch D^t[x] contains
+    {y != x : d(x,y) <= t}, plus x itself from t >= 2 onward (x enters via
+    its neighbors' adjacency sets on the second pass). Row t-1 holds that
+    target count for pass t.
+
+    The same counts as the JAX package's per-source BFS, computed for a
+    block of sources at once: a boolean reach panel ``[n, sources]`` grows
+    by one hop per step, each vertex OR-ing its neighbors' columns (edges
+    sorted by destination, ``np.logical_or.reduceat`` per vertex).
+    """
+    e = np.asarray(edges, dtype=np.int64).reshape(-1, 2)
+    src = np.concatenate([e[:, 0], e[:, 1]])
+    dst = np.concatenate([e[:, 1], e[:, 0]])
+    order = np.argsort(dst, kind="stable")
+    src = src[order]
+    deg = np.bincount(dst, minlength=n)
+    has = np.flatnonzero(deg)
+    starts = np.concatenate([[0], np.cumsum(deg)[:-1]])[has]
+    out = np.zeros((t_max, n), dtype=np.int64)
+    block = max(1, min(n, _TRUTH_BLOCK_BYTES // max(len(src), 1)))
+    for s0 in range(0, n, block):
+        sources = np.arange(s0, min(n, s0 + block))
+        reached = np.zeros((n, len(sources)), dtype=bool)
+        reached[sources, np.arange(len(sources))] = True
+        for t in range(1, t_max + 1):
+            if len(src):
+                pulled = np.logical_or.reduceat(reached[src], starts, axis=0)
+                reached[has] |= pulled
+            count = reached.sum(axis=0) - 1  # y != x
+            out[t - 1, sources] = count + ((t >= 2) & (deg[sources] > 0))
+    return out
 
 
 def exact_edge_triangles(n: int, edges: np.ndarray) -> np.ndarray:

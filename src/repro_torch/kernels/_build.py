@@ -53,6 +53,8 @@ KERNELS = {
     "union_estimate_stats": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
     # a, b, stats, n_pairs, r, q, stream
     "ertl_stats": (_P, _P, _P, _I64, _I32, _I32, _P),
+    # prev, cur, out, n_rows, r, stream
+    "hip_delta_rows": (_P, _P, _P, _I64, _I32, _P),
 }
 
 _LAUNCHES = {name: 0 for name in KERNELS}

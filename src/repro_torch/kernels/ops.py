@@ -6,13 +6,16 @@
   would be a self-merge no-op, which is how the JAX package parks its
   masked slots (``ops.py:178-180``);
 * estimate: the kernel's ``(s, z)`` are combined by the config's
-  estimator (Flajolet, ``ops.py:208-224``, or LogLogBeta);
+  estimator (Flajolet, ``ops.py:208-224``, or LogLogBeta); an ADS
+  config takes the Flajolet combination, its plain floor;
 * intersection_stats: pair lanes ``(B, 2)`` split into the two endpoint
   vectors; padding pairs gather row 0 and the caller drops their answers;
 * union_estimate: padding slots of the ``(B, L)`` set panel are masked
   and merge nothing; the kernel's ``(s, z)`` are combined by the config's
   estimator, ``ops.py:247-263``;
-* ertl_stats: row pairs already gathered by the caller, ``ops.py:331``.
+* ertl_stats: row pairs already gathered by the caller, ``ops.py:331``;
+* hip_delta: two hop panels of one shape, byte layout only,
+  ``ops.py:360-376``.
 
 The CUDA kernels need no block padding (each masks its own ragged edge),
 and their launch shapes are constants in ``csrc/``; the autotune table of
@@ -22,9 +25,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import hll
+from repro_torch.core import ads, hll
 from repro_torch.core.hll import HLLConfig
 from repro_torch.kernels.ertl_stats import ertl_stats as _ertl_stats
+from repro_torch.kernels.hip_delta import hip_delta_rows
 from repro_torch.kernels.hll_accumulate import hll_accumulate
 from repro_torch.kernels.hll_estimate import hll_estimate_stats
 from repro_torch.kernels.hll_propagate import hll_propagate
@@ -33,7 +37,7 @@ from repro_torch.kernels.intersection_stats import (
 from repro_torch.kernels.union_estimate import union_estimate_stats
 
 __all__ = ["accumulate", "propagate", "estimate", "union_estimate",
-           "intersection_stats", "ertl_stats"]
+           "intersection_stats", "ertl_stats", "hip_delta"]
 
 
 def accumulate(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
@@ -52,10 +56,13 @@ def propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     return hll_propagate(regs, src, dst, layout=layout)
 
 
-def estimate(regs: torch.Tensor, cfg: HLLConfig,
-             layout: str = "byte") -> torch.Tensor:
-    """Cardinality estimate per sketch row (uint8[N, r]) by ``cfg.estimator``."""
+def estimate(regs: torch.Tensor, cfg, layout: str = "byte") -> torch.Tensor:
+    """Cardinality estimate per sketch row (uint8[N, r]) by ``cfg.estimator``;
+    an ``ADSConfig`` gets the Flajolet combination (the HIP curve's
+    plain floor)."""
     stats = hll_estimate_stats(regs, layout=layout)
+    if isinstance(cfg, ads.ADSConfig):
+        cfg = ads._plain_cfg(cfg)
     return hll.estimate_from_stats(stats[:, 0], stats[:, 1], cfg)
 
 
@@ -79,3 +86,12 @@ def ertl_stats(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
                layout: str = "byte") -> torch.Tensor:
     """Eq. 19 statistics float32[E, 5, q+2] for paired rows uint8[E, r]."""
     return _ertl_stats(a, b, cfg.q, layout=layout)
+
+
+def hip_delta(prev: torch.Tensor, cur: torch.Tensor,
+              layout: str = "byte") -> torch.Tensor:
+    """Batch-HIP per-row increments between hop panels uint8[N, r]:
+    ``sum_j [cur_j > prev_j] * 2**prev_j`` (ADS family, byte layout only)."""
+    if layout != "byte":
+        raise ValueError(f"hip_delta requires byte layout, got {layout!r}")
+    return hip_delta_rows(prev, cur, layout=layout)

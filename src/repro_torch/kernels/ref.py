@@ -16,8 +16,8 @@ import torch
 
 __all__ = ["hll_accumulate_ref", "hll_propagate_ref", "hll_estimate_ref",
            "union_estimate_ref", "intersection_stats_ref", "ertl_stats_ref",
-           "EDGE_CHUNK", "ROW_CHUNK", "PROPAGATE_CHUNK", "PAIR_CHUNK",
-           "UNION_CHUNK_BYTES"]
+           "hip_delta_ref", "EDGE_CHUNK", "ROW_CHUNK", "PROPAGATE_CHUNK",
+           "PAIR_CHUNK", "UNION_CHUNK_BYTES", "HIP_CHUNK_REGISTERS"]
 
 #: edges per scatter-max step of the accumulate reference
 EDGE_CHUNK = 1 << 20
@@ -30,6 +30,9 @@ PROPAGATE_CHUNK = 1 << 16
 PAIR_CHUNK = 1 << 14
 #: gathered member-row bytes per step of the union reference
 UNION_CHUNK_BYTES = 1 << 26
+#: registers per step of the HIP-increment reference (each step holds a
+#: few int64 panels of this many entries)
+HIP_CHUNK_REGISTERS = 1 << 24
 
 
 def hll_accumulate_ref(regs: torch.Tensor, rows: torch.Tensor,
@@ -169,4 +172,39 @@ def ertl_stats_ref(a: torch.Tensor, b: torch.Tensor, q: int) -> torch.Tensor:
         out[s:s + PAIR_CHUNK] = _pair_histograms(
             a[s:s + PAIR_CHUNK].to(torch.int64),
             b[s:s + PAIR_CHUNK].to(torch.int64), q)
+    return out
+
+
+def hip_delta_ref(prev: torch.Tensor, cur: torch.Tensor) -> torch.Tensor:
+    """Batch-HIP increments: sum_j [cur_j > prev_j] * 2^prev_j per row.
+
+    prev/cur: uint8[N, r] byte-layout panels -> float32[N]; a register
+    that fell contributes nothing. The sum is taken exactly and rounded
+    to float32 once, so any order of summation gives the same bits, as
+    the kernel's fixed shuffle tree does: the terms 2^x with x < 32 are
+    summed as int64 ``lo``, those with 32 <= x < 64 as int64 ``hi`` in
+    units of 2^32 (both below 2^48 for r <= 2^16), and the result is
+    ``float32((hi * 2^32 + lo) + big)`` in float64, where ``big`` sums
+    the terms with x >= 64 in float64. No ADS register reaches 64
+    (``ADSConfig.max_register`` is 65 - p), so ``big`` is 0 on real
+    panels.
+    """
+    n, r = prev.shape
+    out = torch.empty(n, dtype=torch.float32, device=prev.device)
+    one = torch.ones((), dtype=torch.int64, device=prev.device)
+    zero = torch.zeros((), dtype=torch.int64, device=prev.device)
+    step = max(1, HIP_CHUNK_REGISTERS // r)
+    for i in range(0, n, step):
+        x = prev[i:i + step].to(torch.int64)
+        grew = cur[i:i + step] > prev[i:i + step]
+        lo = torch.where(grew & (x < 32),
+                         torch.bitwise_left_shift(one, x.clamp(max=31)),
+                         zero).sum(dim=-1)
+        hi = torch.where(grew & (x >= 32) & (x < 64),
+                         torch.bitwise_left_shift(one, (x - 32).clamp(0, 31)),
+                         zero).sum(dim=-1)
+        big = torch.where(grew & (x >= 64), torch.exp2(x.to(torch.float64)),
+                          0.0).sum(dim=-1)
+        out[i:i + step] = (hi.to(torch.float64) * 2.0 ** 32
+                                + lo.to(torch.float64) + big).to(torch.float32)
     return out

@@ -5,29 +5,41 @@ use. The JAX package registers ``(family, op, impl)`` entries and lets
 engines pick ``ref`` or ``pallas``; the port has one implementation per
 op, the CUDA kernel, whose wrapper takes the plain PyTorch version for
 CPU tensors, so a :class:`KernelSet` is resolved from the config and the
-layout alone. It carries the six HLL ops of the byte layout (accumulate,
-propagate, estimate, union_estimate, intersection_stats, ertl_stats).
-What is not ported yet — the packed layout, and the ADS family with its
-``hip_delta`` kernel — fails here, up front, naming the ROADMAP item that
-brings it.
+layout alone. It carries the seven ops of the byte layout: accumulate,
+propagate and estimate for both families, union_estimate,
+intersection_stats and ertl_stats for HLL, and hip_delta for ADS. The
+family comes from the config's type (``family_of``). An ADS engine on
+the packed layout fails here as in the JAX package; the packed layout of
+HLL is not ported yet and fails here, up front, naming the ROADMAP item
+that brings it.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-from repro_torch.core.families import HLL
+from repro_torch.core.families import ADS, HLL
 
-__all__ = ["KernelSet", "resolve", "family"]
+__all__ = ["KernelSet", "resolve", "family", "family_of"]
+
+_FAMILIES = {fam.name: fam for fam in (HLL, ADS)}
 
 
 def family(name: str):
-    """The family object registered under ``name`` (only ``"hll"`` so far)."""
-    if name == "hll":
-        return HLL
-    if name == "ads":
-        raise ValueError("the ADS family is not ported yet "
-                         "(ROADMAP Queue A item 12)")
-    raise ValueError(f"unknown sketch family {name!r}")
+    """The family object registered under ``name`` ("hll" or "ads")."""
+    fam = _FAMILIES.get(name)
+    if fam is None:
+        raise ValueError(f"unknown sketch family {name!r}; known families: "
+                         f"{sorted(_FAMILIES)}")
+    return fam
+
+
+def family_of(cfg):
+    """The family whose config class ``cfg`` is an instance of."""
+    for fam in _FAMILIES.values():
+        if type(cfg) is fam.config_cls:
+            return fam
+    raise TypeError(f"config {type(cfg).__name__} belongs to no ported "
+                    f"sketch family (have: {sorted(_FAMILIES)})")
 
 
 @dataclass(frozen=True)
@@ -39,7 +51,7 @@ class KernelSet:
 
     Attributes:
       layout: register-panel layout ("byte").
-      family: sketch-family coordinate ("hll").
+      family: sketch-family coordinate ("hll" or "ads").
     """
 
     layout: str = "byte"
@@ -80,22 +92,30 @@ class KernelSet:
         from repro_torch.kernels import ops
         return ops.intersection_stats(regs, pairs, cfg, layout=self.layout)
 
+    def hip_delta(self, prev, cur):
+        """Batch-HIP per-row increments between two hop panels (ADS)."""
+        from repro_torch.kernels import ops
+        return ops.hip_delta(prev, cur, layout=self.layout)
+
 
 def resolve(cfg, layout: str = "byte") -> KernelSet:
     """Check that this slice serves ``(cfg, layout)``; bundle a set.
 
-    The config's type selects the family, as ``registry.family_of`` does
-    in the JAX package. Raises ``ValueError`` for the packed layout, which
-    is not ported yet (ROADMAP Queue A item 10), and ``TypeError`` for a
-    config of no ported family.
+    The config's type selects the family (:func:`family_of`). Raises
+    ``TypeError`` for a config of no ported family, ``ValueError`` for a
+    layout the family does not tolerate (ADS is byte-only), and
+    ``ValueError`` for the packed layout of HLL, which is not ported yet
+    (ROADMAP Queue A item 10).
     """
+    if layout not in ("byte", "packed"):
+        raise ValueError(f"layout must be 'byte' or 'packed', got {layout!r}")
+    fam = family_of(cfg)
+    if layout not in fam.layouts:
+        raise ValueError(
+            f"sketch family {fam.name!r} supports layouts {fam.layouts}, "
+            f"not {layout!r} (ADS inverse probabilities need full-width "
+            f"registers)")
     if layout == "packed":
         raise ValueError("the packed layout is not ported yet "
                          "(ROADMAP Queue A item 10)")
-    if layout != "byte":
-        raise ValueError(f"layout must be 'byte', got {layout!r}")
-    fam = HLL
-    if type(cfg) is not fam.config_cls:
-        raise TypeError(f"config {type(cfg).__name__} belongs to no ported "
-                        f"sketch family (have: {fam.name!r})")
     return KernelSet(layout=layout, family=fam.name)

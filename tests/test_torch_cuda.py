@@ -10,19 +10,21 @@ with one, from the repository root:
 which the port's machine need not have; this file imports only the port.)
 Shapes sweep what ``chip_smoke.py``'s single p=8 run does not: other
 precisions, ragged sizes, masked edges and set lanes, self-loops,
-duplicate edges and ids, and register bytes above q + 1. Tolerances as in
-``tests/test_torch_kernels.py``: panels, histograms and zero counts
-exact, harmonic sums ``rtol=1e-6``; the card engine against the CPU
-engine as the CPU parity tests hold the port to JAX (estimates 1e-5,
-MLE 1e-4 of the estimates' scale).
+duplicate edges and ids, register bytes above q + 1, and hop panels
+whose registers fell. Tolerances as in ``tests/test_torch_kernels.py``:
+panels, histograms and zero counts exact, harmonic sums ``rtol=1e-6``,
+HIP increments exact (both sum exactly and round once); the card engine
+against the CPU engine as the CPU parity tests hold the port to JAX
+(estimates 1e-5, MLE 1e-4 of the estimates' scale).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import _build, ertl_stats, hll_accumulate  # noqa: E402
-from repro_torch.kernels import hll_estimate, hll_propagate  # noqa: E402
+from repro_torch.kernels import _build, ertl_stats, hip_delta  # noqa: E402
+from repro_torch.kernels import hll_accumulate, hll_estimate  # noqa: E402
+from repro_torch.kernels import hll_propagate  # noqa: E402
 from repro_torch.kernels import intersection_stats, union_estimate  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -161,6 +163,70 @@ def test_ertl_stats_match_plain(dev, p, b):
     c[::5] = a[::5]
     got = _launched("ertl_stats", lambda: ertl_stats.ertl_stats(a, c, q))
     assert torch.equal(got, ertl_stats.plain(a, c, q))
+
+
+@pytest.mark.parametrize("p", [4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16])
+@pytest.mark.parametrize("n", [1, 33, 1001])
+def test_hip_delta_matches_plain(dev, p, n):
+    """Ragged row counts, every row width the kernel groups differently,
+    registers up to max_register, lanes that grew, stayed and fell."""
+    rng = np.random.default_rng(p * 10000 + n)
+    top = 65 - p
+    prev = rng.integers(0, top + 1, (n, 1 << p))
+    cur = np.clip(prev + rng.integers(-3, 4, prev.shape), 0, top)
+    cur[::4] = prev[::4]  # rows that did not grow at all
+    prev_t, cur_t = (torch.from_numpy(x.astype(np.uint8)).to(dev)
+                     for x in (prev, cur))
+    got = _launched("hip_delta_rows",
+                    lambda: hip_delta.hip_delta_rows(prev_t, cur_t))
+    assert torch.equal(got, hip_delta.plain(prev_t, cur_t))
+    assert bool((got[::4] == 0).all())
+
+
+def test_hip_delta_foreign_bytes(dev):
+    """Register bytes of 64 and above (no ADS config stores them) take
+    the float64 band; 128 and above overflow to inf, as in float32."""
+    prev = torch.zeros((3, 16), dtype=torch.uint8, device=dev)
+    cur = torch.full((3, 16), 255, dtype=torch.uint8, device=dev)
+    prev[0, 0], prev[1, 0], prev[2, 0] = 64, 100, 200
+    prev[:, 1:] = 254
+    got = hip_delta.hip_delta_rows(prev, cur)
+    assert torch.equal(got, hip_delta.plain(prev, cur))
+    assert torch.isinf(got).all()
+    prev[:, 1:] = 255  # only lane 0 grew
+    got = hip_delta.hip_delta_rows(prev, cur)
+    assert got[:2].tolist() == [2.0 ** 64, 2.0 ** 100]
+    assert torch.isinf(got[2])
+
+
+def test_ads_engine_on_the_card_matches_the_cpu(dev):
+    """Distance queries through the kernels: the same registers, HIP
+    curve rows within 1e-5 of the CPU's, hip_delta launched once per hop
+    after the first and not at all on a repeat."""
+    from repro_torch import engine
+    from repro_torch.core.ads import ADSConfig
+    from repro_torch.graph import generators
+    edges = generators.rmat(10, 8, seed=6)
+    n = 1 << 10
+    cpu = engine.build(edges, n, ADSConfig(p=8), device="cpu")
+    card = engine.build(edges, n, ADSConfig(p=8), family="ads")
+    assert torch.equal(card.regs.cpu(), cpu.regs)
+    before = _build.launch_counts()
+    hist, glob = card.distance_histogram(4)
+    after = _build.launch_counts()
+    assert after["hip_delta_rows"] - before["hip_delta_rows"] == 3
+    assert after["hll_propagate"] - before["hll_propagate"] == 3
+    w_hist, w_glob = cpu.distance_histogram(4)
+    np.testing.assert_allclose(np.cumsum(hist, 0), np.cumsum(w_hist, 0),
+                               rtol=1e-5)
+    np.testing.assert_allclose(glob, w_glob, rtol=1e-5)
+    np.testing.assert_allclose(card.closeness(4), cpu.closeness(4),
+                               rtol=1e-5)
+    assert abs(card.effective_diameter(4) - cpu.effective_diameter(4)) < 1e-6
+    assert _build.launch_counts() == after  # served from the cached curve
+    left = engine.build(edges[0::2], n, ADSConfig(p=8))
+    left.merge(engine.build(edges[1::2], n, ADSConfig(p=8), device="cpu"))
+    assert left.device.type == "cuda" and torch.equal(left.regs, card.regs)
 
 
 def test_engine_queries_on_the_card_match_the_cpu(dev):
