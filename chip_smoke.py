@@ -8,7 +8,8 @@ Run from the repository root, on a machine with one CUDA card:
 Phases, one line each:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build: the seven CUDA kernels of ``src/repro_torch/csrc`` from source;
+2. build: the CUDA kernels of ``src/repro_torch/csrc`` from source, seven
+   byte-layout launchers and six packed-layout ones;
 3. graph: RMAT scale 22, edge factor 16, seed 0 (4.19M vertices, about
    64M undirected edges, the Graph500 Kronecker parameters), and the
    4,096 union sets ``{v} ∪ N(v)`` of seeded random vertices of degree
@@ -19,7 +20,11 @@ Phases, one line each:
    accumulate, the ``scatter_reduce_`` yardstick; ``hip_delta_rows`` on
    ``D^1``/``D^2`` of the scale-22 panel and on a sweep of ragged row
    counts with registers up to ``max_register`` and falling lanes, equal
-   bit for bit;
+   bit for bit; then each packed kernel on the packed scale-22 panel
+   (512 MiB) at the same shapes, equal to its plain version bit for bit
+   and to the byte kernel on the unpacked (clamped) panel, the packed
+   accumulate equal to ``pack_rows`` of the byte panel and the packed
+   propagate to ``pack_rows`` of the byte pass;
 5. main path, with launch counters zeroed just before: ``engine.build``,
    ``degrees`` (mean relative error against exact degrees),
    ``neighborhood(3)``, ``intersection_size`` on 16,384 edge pairs with
@@ -28,6 +33,16 @@ Phases, one line each:
    (bit for bit the per-kind answers); every kernel of the path must have
    launched; then the share of the pairs that the reference's
    Hessian-overflow flag holds still;
+5b. packed main path, once the byte engine is freed, counters zeroed just
+   before: the same steps with ``layout="packed"``, each timed, with peak
+   memory; the panel equal to ``pack_rows`` of the byte panel, every
+   answer equal to the byte kernels' on the clamped panel bit for bit,
+   ``pack_rows`` commuting with the propagate passes, the count of byte
+   registers above 15 and of rows whose degrees differ from the byte
+   engine's printed; every packed launcher of the path launched;
+5c. packed durability, counters zeroed just before: ``save``/``load`` of
+   the packed engine, ``load(layout="byte")`` equal to the exact unpack,
+   and even/odd half builds merged equal to the one-shot packed build;
 6. ADS, on the same graph once the main path's engine is freed, counters
    zeroed just before: ``engine.build(..., ADSConfig(p=8),
    family="ads")``, ``distance_histogram(6)``, ``closeness(6)``,
@@ -52,9 +67,14 @@ Phases, one line each:
     versions) and on the card, which must agree, the top-20 recall of
     the estimated triangle heavy hitters against exact counts (reported),
     and the ADS curve of both against each other (``rtol=1e-6``) and
-    against exact ball sizes (the tolerances of ``tests/test_ads.py``).
+    against exact ball sizes (the tolerances of ``tests/test_ads.py``);
+    then the packed engine on both, triangles (edge and vertex) included,
+    with counters zeroed just before the card's run (the engine path of
+    ``ertl_stats_packed``), the card's answers also equal to the byte
+    kernels' on the clamped panel bit for bit.
 
-Then the kernels JSON line, the card line, and the last line
+Then the kernels JSON line (every launcher launched on a counted path),
+the card line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
 exits non-zero without that line; so does a run without a CUDA device or
 outside the repository.
@@ -95,6 +115,20 @@ SOURCES = {
                    "src/repro/kernels/ertl_stats.py:55"),
     "hip_delta_rows": ("src/repro_torch/csrc/hip_delta.cu",
                        "src/repro/kernels/hip_delta.py:39"),
+    # packed-layout variants: the Pallas kernels' packed bodies
+    "hll_accumulate_packed": ("src/repro_torch/csrc/hll_accumulate.cu",
+                              "src/repro/kernels/hll_accumulate.py:63"),
+    "hll_estimate_stats_packed": ("src/repro_torch/csrc/hll_estimate.cu",
+                                  "src/repro/kernels/hll_estimate.py:31"),
+    "hll_propagate_packed": ("src/repro_torch/csrc/hll_propagate.cu",
+                             "src/repro/kernels/hll_propagate.py:32"),
+    "intersection_stats_packed": (
+        "src/repro_torch/csrc/intersection_stats.cu",
+        "src/repro/kernels/intersection_stats.py:47"),
+    "union_estimate_stats_packed": ("src/repro_torch/csrc/union_estimate.cu",
+                                    "src/repro/kernels/union_estimate.py:40"),
+    "ertl_stats_packed": ("src/repro_torch/csrc/ertl_stats.cu",
+                          "src/repro/kernels/ertl_stats.py:34"),
 }
 
 
@@ -340,6 +374,190 @@ def compare_hip_delta(torch, np, prev, cur, report):
            f"D^1 -> D^2, {rows} rows, {grew} grew; sweep of p 4-16 equal")
 
 
+def compare_packed_kernels(torch, np, edges, n, pairs, sets, panel, report):
+    """Phase 4, packed layout: each packed kernel against its plain
+    version on the card at the main path's shapes (the scale-22 panel
+    packed, 512 MiB), every output equal bit for bit, and equal to the
+    byte kernel on the unpacked (clamped) panel. ``panel`` is the byte
+    panel on the host; returns its packed image, on the host."""
+    from repro_torch.core.hashing import bucket_rho
+    from repro_torch.engine import plans
+    from repro_torch.kernels import ertl_stats, hll_accumulate, hll_estimate
+    from repro_torch.kernels import hll_propagate, intersection_stats
+    from repro_torch.kernels import packing, union_estimate
+
+    dev = torch.device(DEVICE)
+    w, q = 1 << (P - 1), 64 - P
+    n_pad = panel.shape[0]
+    byte = panel.to(dev)
+    want = packing.pack_rows(byte)
+
+    def reg_err(a, b):
+        """Max abs difference over the unpacked registers."""
+        return int((packing.unpack_rows(a).to(torch.int16)
+                    - packing.unpack_rows(b).to(torch.int16)).abs().max())
+
+    directed = np.concatenate([edges, edges[:, ::-1]])
+    rows = torch.from_numpy(np.ascontiguousarray(directed[:, 0])).to(dev)
+    keys = torch.from_numpy(directed[:, 1].astype(np.uint32)).to(dev)
+    live = torch.ones(rows.shape, dtype=torch.bool, device=dev)
+
+    # accumulate: the whole graph through the kernel and the plain version
+    regs_k = torch.zeros((n_pad, w), dtype=torch.uint8, device=dev)
+    regs_p = torch.zeros_like(regs_k)
+    hll_accumulate.hll_accumulate(regs_k, rows, keys, live, p=P, seed=0,
+                                  layout="packed")
+    hll_accumulate.plain(regs_p, rows, keys, live, p=P, seed=0,
+                         layout="packed")
+    torch.cuda.synchronize()
+    err = reg_err(regs_k, regs_p)
+    if err != 0:
+        fail(f"hll_accumulate_packed differs from its plain version "
+             f"(max {err})")
+    if not torch.equal(regs_k, want):
+        fail("hll_accumulate_packed differs from pack_rows of the byte panel")
+    del regs_p
+    blk = min(2 * 32768, len(directed) // 4)
+    n_blk = min(16, len(directed) // blk)
+    blocks = [slice(i * blk, (i + 1) * blk) for i in range(n_blk)]
+    mask = torch.ones(blk, dtype=torch.bool, device=dev)
+    fresh = [torch.zeros((n_pad, w), dtype=torch.uint8, device=dev)
+             for _ in range(2)]
+    it = iter(blocks * 2)
+
+    def nxt(g):
+        sl = next(it)
+        return g, rows[sl], keys[sl]
+
+    ms = cuda_ms(torch, lambda g, ro, ke: hll_accumulate.hll_accumulate(
+        g, ro, ke, mask, p=P, layout="packed"), n_blk, lambda: nxt(fresh[0]))
+    plain_ms = cuda_ms(torch, lambda g, ro, ke: hll_accumulate.plain(
+        g, ro, ke, mask, p=P, layout="packed"), n_blk, lambda: nxt(fresh[1]))
+    bkt, _ = bucket_rho(keys[blocks[0]], P)
+    touched = torch.unique(rows[blocks[0]].to(torch.int64) * w
+                           + bkt % w).numel()
+    report("hll_accumulate_packed", err, ms, plain_ms,
+           bound_ms(blk * 9 + 2 * touched), None,
+           f"one block of {blk} directed edges, {touched} bytes touched; "
+           f"whole graph equal to pack_rows of the byte panel; library "
+           f"null: no PyTorch call merges into a nibble")
+    del fresh, rows, keys, live
+
+    # estimate: the packed panel; the byte kernel on the clamped panel
+    clamped = packing.unpack_rows(regs_k)
+    out_k = hll_estimate.hll_estimate_stats(regs_k, layout="packed")
+    out_p = hll_estimate.plain(regs_k, layout="packed")
+    out_b = hll_estimate.hll_estimate_stats(clamped)
+    torch.cuda.synchronize()
+    if not (torch.equal(out_k, out_p) and torch.equal(out_k, out_b)):
+        fail("hll_estimate_stats_packed differs from its plain version or "
+             "from the byte kernel on the clamped panel")
+    err = float((out_k - out_p).abs().max())
+    ms = cuda_ms(torch, lambda: hll_estimate.hll_estimate_stats(
+        regs_k, layout="packed"), 10)
+    plain_ms = cuda_ms(torch, lambda: hll_estimate.plain(
+        regs_k, layout="packed"), 3)
+    report("hll_estimate_stats_packed", err, ms, plain_ms,
+           bound_ms(n_pad * w + n_pad * 8), None,
+           f"{n_pad} rows; equal to the byte kernel on the clamped panel")
+
+    # propagate: the whole routing; pack_rows commutes with the pass
+    src = torch.from_numpy(np.ascontiguousarray(directed[:, 0])).to(dev)
+    dst = torch.from_numpy(np.ascontiguousarray(directed[:, 1])).to(dev)
+    prop_k = hll_propagate.hll_propagate(regs_k, src, dst, layout="packed")
+    prop_p = hll_propagate.plain(regs_k, src, dst, layout="packed")
+    torch.cuda.synchronize()
+    err = reg_err(prop_k, prop_p)
+    if err != 0:
+        fail(f"hll_propagate_packed differs from its plain version "
+             f"(max {err})")
+    del prop_p
+    prop_b = hll_propagate.hll_propagate(byte, src, dst)
+    if not torch.equal(packing.pack_rows(prop_b), prop_k):
+        fail("pack_rows does not commute with the propagate pass")
+    del prop_b, prop_k, byte
+    ms = cuda_ms(torch, lambda: hll_propagate.hll_propagate(
+        regs_k, src, dst, layout="packed"), 3)
+    plain_ms = cuda_ms(torch, lambda: hll_propagate.plain(
+        regs_k, src, dst, layout="packed"), 1)
+    e_live = src.numel()
+    report("hll_propagate_packed", err, ms, plain_ms,
+           bound_ms(2 * n_pad * w + 8 * e_live), None,
+           f"{e_live} directed edges; pack_rows(byte pass) equal")
+    del src, dst
+
+    # intersection_stats: the main path's pairs
+    ids = torch.from_numpy(plans.pad_pairs(pairs)[0]).to(dev)
+    pa, pb = ids[:, 0].contiguous(), ids[:, 1].contiguous()
+    st_k, sz_k = intersection_stats.intersection_stats(regs_k, pa, pb, q,
+                                                       layout="packed")
+    st_p, sz_p = intersection_stats.plain(regs_k, pa, pb, q, layout="packed")
+    st_b, sz_b = intersection_stats.intersection_stats(clamped, pa, pb, q)
+    torch.cuda.synchronize()
+    if not (torch.equal(st_k, st_p) and torch.equal(sz_k, sz_p)
+            and torch.equal(st_k, st_b) and torch.equal(sz_k, sz_b)):
+        fail("intersection_stats_packed differs from its plain version or "
+             "from the byte kernel on the clamped panel")
+    err = max(float((st_k - st_p).abs().max()),
+              float((sz_k - sz_p).abs().max()))
+    ms = cuda_ms(torch, lambda: intersection_stats.intersection_stats(
+        regs_k, pa, pb, q, layout="packed"), 20)
+    plain_ms = cuda_ms(torch, lambda: intersection_stats.plain(
+        regs_k, pa, pb, q, layout="packed"), 3)
+    rows_read = torch.unique(ids).numel()
+    b = ids.shape[0]
+    report("intersection_stats_packed", err, ms, plain_ms,
+           bound_ms(rows_read * w + 8 * b + 4 * b * (5 * (q + 2) + 6)), None,
+           f"{b} pairs, {rows_read} distinct rows")
+
+    # union_estimate_stats: the main path's padded set panel
+    ids_np, mask_np = plans.pad_sets(sets)
+    ids = torch.from_numpy(ids_np).to(dev)
+    mask = torch.from_numpy(mask_np).to(dev)
+    out_k = union_estimate.union_estimate_stats(regs_k, ids, mask,
+                                                layout="packed")
+    out_p = union_estimate.plain(regs_k, ids, mask, layout="packed")
+    out_b = union_estimate.union_estimate_stats(clamped, ids, mask)
+    torch.cuda.synchronize()
+    if not (torch.equal(out_k, out_p) and torch.equal(out_k, out_b)):
+        fail("union_estimate_stats_packed differs from its plain version "
+             "or from the byte kernel on the clamped panel")
+    err = float((out_k - out_p).abs().max())
+    ms = cuda_ms(torch, lambda: union_estimate.union_estimate_stats(
+        regs_k, ids, mask, layout="packed"), 20)
+    plain_ms = cuda_ms(torch, lambda: union_estimate.plain(
+        regs_k, ids, mask, layout="packed"), 3)
+    rows_read = np.unique(ids_np[mask_np]).size
+    report("union_estimate_stats_packed", err, ms, plain_ms,
+           bound_ms(rows_read * w + 5 * ids_np.size + 8 * ids_np.shape[0]),
+           None, f"{ids_np.shape[0]} x {ids_np.shape[1]} set panel, "
+                 f"{rows_read} distinct rows")
+
+    # ertl_stats: 2^18 edge pairs gathered from the packed panel
+    pick = np.random.default_rng(SEED + 1).choice(len(edges), ERTL_PAIRS,
+                                                  replace=False)
+    ends = torch.from_numpy(edges[pick].astype(np.int64)).to(dev)
+    a, c = regs_k[ends[:, 0]], regs_k[ends[:, 1]]
+    st_k = ertl_stats.ertl_stats(a, c, q, layout="packed")
+    st_p = ertl_stats.plain(a, c, q, layout="packed")
+    st_b = ertl_stats.ertl_stats(packing.unpack_rows(a),
+                                 packing.unpack_rows(c), q)
+    torch.cuda.synchronize()
+    if not (torch.equal(st_k, st_p) and torch.equal(st_k, st_b)):
+        fail("ertl_stats_packed differs from its plain version or from the "
+             "byte kernel on the unpacked rows")
+    err = float((st_k - st_p).abs().max())
+    del st_k, st_p, st_b, clamped
+    ms = cuda_ms(torch, lambda: ertl_stats.ertl_stats(a, c, q,
+                                                      layout="packed"), 10)
+    plain_ms = cuda_ms(torch, lambda: ertl_stats.plain(a, c, q,
+                                                       layout="packed"), 3)
+    report("ertl_stats_packed", err, ms, plain_ms,
+           bound_ms(ERTL_PAIRS * (2 * w + 4 * 5 * (q + 2))), None,
+           f"{ERTL_PAIRS} gathered edge pairs")
+    return regs_k.cpu()
+
+
 def main_path(torch, np, edges, n, pairs, verts, sets, panel):
     """Phase 5: the port's main path through its entry points."""
     from repro_torch import engine
@@ -414,11 +632,149 @@ def main_path(torch, np, edges, n, pairs, verts, sets, panel):
         "per-kind answers bit for bit")
     counts = _build.launch_counts()
     log(f"kernels: {counts}")
-    missing = [k for k, c in counts.items()
-               if c == 0 and k not in ("ertl_stats", "hip_delta_rows")]
+    missing = [k for k in ("hll_accumulate", "hll_estimate_stats",
+                           "hll_propagate", "intersection_stats",
+                           "union_estimate_stats") if counts[k] == 0]
     if missing:
         fail(f"main-path kernels never launched: {missing}")
     overflow_share(torch, eng, pairs)
+    return counts, deg
+
+
+def packed_path(torch, np, edges, n, pairs, verts, sets, panel, packed_panel,
+                byte_deg):
+    """Phase 5b: the main path on the packed layout, launch counters zeroed
+    just before; then its answers against the byte kernels on the clamped
+    panel, and the registers the clamp changed. ``panel`` and
+    ``packed_panel`` are the byte panel and its packed image on the host,
+    ``byte_deg`` the byte engine's degrees. Returns (engine, launch
+    counts)."""
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig, rel_std
+    from repro_torch.kernels import _build, packing
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    times = {}
+
+    def step(name, fn):
+        out, times[name] = timed(torch, fn)
+        return out
+
+    eng = step("build", lambda: engine.build(
+        edges, n, HLLConfig(p=P), layout="packed", device=DEVICE))
+    deg = step("degrees", eng.degrees)
+    loc, glob = step("neighborhood", lambda: eng.neighborhood(T_MAX))
+    est = step("intersection_size",
+               lambda: eng.intersection_size(pairs, method="mle"))
+    uni = step("union_size", lambda: eng.union_size(sets))
+    batch = step("query_batch", lambda: eng.query_batch(
+        degrees=True, vertex_sets=sets, pairs=pairs, method="mle"))
+    counts = _build.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rate = len(edges) / times["build"] / 1e6
+    steps = ", ".join(f"{name} {secs:.3f} s" for name, secs in times.items())
+    log(f"packed: {steps} (build {rate:.2f} M edges/s, neighborhood "
+        f"t_max={T_MAX}); max_memory_allocated {peak:.2f} GiB; global sizes "
+        f"{glob.tolist()}; launches {counts}")
+    if not (eng.layout == "packed" and eng.regs.shape[1] == (1 << P) // 2
+            and torch.equal(eng.regs.cpu(), packed_panel)):
+        fail("packed: the packed build differs from pack_rows of the byte "
+             "panel")
+    if not (np.isfinite(deg).all() and np.isfinite(loc).all()
+            and np.isfinite(est).all() and np.isfinite(uni).all()):
+        fail("packed: answers are not finite")
+    if not np.array_equal(loc[0], deg) or not np.all(np.diff(glob) > 0):
+        fail("packed: hop 1 must equal degrees and sizes must grow")
+    if not np.allclose(uni, loc[1][verts], rtol=1e-5, atol=0):
+        fail("packed: union_size({v} u N(v)) differs from hop 2")
+    if not (np.array_equal(batch["degrees"], deg)
+            and np.array_equal(batch["union"], uni)
+            and np.array_equal(batch["intersection"], est)):
+        fail("packed: query_batch differs from the per-kind answers")
+    exact = np.bincount(edges.ravel(), minlength=n).astype(np.float64)
+    has = exact > 0
+    mre = float(np.mean(np.abs(deg[has] - exact[has]) / exact[has]))
+    if mre >= 3 * rel_std(P):
+        fail(f"packed: degree error {mre:.4f} >= 3 x 1.04/sqrt(r)")
+    missing = [k + "_packed" for k in (
+        "hll_accumulate", "hll_estimate_stats", "hll_propagate",
+        "intersection_stats", "union_estimate_stats")
+        if counts[k + "_packed"] == 0]
+    if missing:
+        fail(f"packed: main-path kernels never launched: {missing}")
+
+    # the byte kernels on the clamped panel give the same answers, and
+    # pack_rows commutes with every propagate pass
+    clamped = engine.LocalEngine.from_regs(
+        packing.unpack_rows(eng.regs), n, HLLConfig(p=P), edges=edges,
+        device=DEVICE)
+    c_loc, _ = clamped.neighborhood(T_MAX)
+    same = {"degrees": np.array_equal(clamped.degrees(), deg),
+            "neighborhood": np.array_equal(c_loc, loc),
+            "intersection_size": np.array_equal(
+                clamped.intersection_size(pairs, method="mle"), est),
+            "union_size": np.array_equal(clamped.union_size(sets), uni)}
+    commute = all(torch.equal(packing.pack_rows(b), a) for a, b in zip(
+        eng._panel_set.panels, clamped._panel_set.panels))
+    del clamped
+    if not all(same.values()) or not commute:
+        fail(f"packed: answers differ from the byte kernels on the clamped "
+             f"panel ({same}, panels commute: {commute})")
+    saturated = int((panel > packing.SATURATION).sum())
+    rows_sat = int((panel > packing.SATURATION).any(dim=1).sum())
+    differ = int((deg != byte_deg).sum())
+    log(f"packed: registers equal pack_rows of the byte panel; degrees, "
+        f"neighborhood({T_MAX}), intersection_size and union_size equal the "
+        f"byte kernels' on the clamped panel bit for bit; pack_rows commutes "
+        f"with the {len(eng._panel_set.panels) - 1} propagate passes; "
+        f"{saturated} of {panel.numel()} byte registers exceed 15 "
+        f"({rows_sat} rows); degrees of {differ} of {n} rows differ from "
+        f"the byte engine's; degree mean relative error {mre:.4f}")
+    return eng, counts
+
+
+def packed_durability(torch, np, edges, n, eng):
+    """Phase 5c: save and load the packed scale-22 engine, load it as
+    byte (exact unpack), and merge even/odd half builds. Returns the
+    launch counts, zeroed just before."""
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.kernels import _build, packing
+
+    _build.reset_launch_counts()
+    path = ROOT / "build" / "chip_smoke_packed_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        step, t_save = timed(torch, lambda: eng.save(str(path)))
+        written = sum(f.stat().st_size for f in Path(step).iterdir())
+        back, t_load = timed(torch, lambda: engine.load(str(path),
+                                                        device=DEVICE))
+        if not (back.layout == "packed" and torch.equal(back.regs, eng.regs)
+                and back.m == eng.m):
+            fail("packed checkpoint: the loaded engine differs")
+        del back
+        as_byte, t_cross = timed(torch, lambda: engine.load(
+            str(path), layout="byte", device=DEVICE))
+        if not (as_byte.layout == "byte" and torch.equal(
+                as_byte.regs, packing.unpack_rows(eng.regs))):
+            fail("packed checkpoint: load(layout='byte') is not the exact "
+                 "unpack")
+        del as_byte
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    (left, right), t_build = timed(torch, lambda: tuple(
+        engine.build(edges[i::2], n, HLLConfig(p=P), layout="packed",
+                     device=DEVICE) for i in (0, 1)))
+    _, t_merge = timed(torch, lambda: left.merge(right))
+    if not torch.equal(left.regs, eng.regs) or left.m != len(edges):
+        fail("packed merge: the merged halves differ from the one-shot build")
+    counts = _build.launch_counts()
+    log(f"packed: save {t_save:.3f} s ({written / 2**20:.1f} MiB written), "
+        f"load {t_load:.3f} s, load(layout='byte') {t_cross:.3f} s, both "
+        f"bit for bit; two half builds {t_build:.3f} s, merge "
+        f"{t_merge:.4f} s, equal to the one-shot build; launches {counts}")
     return counts
 
 
@@ -650,7 +1006,8 @@ def overflow_share(torch, eng, pairs, label="main: intersection_size",
 
 
 def small_reference(torch, np):
-    """Phase 10: CPU (plain versions) and card agree at RMAT scale 10."""
+    """Phase 10: CPU (plain versions) and card agree at RMAT scale 10, in
+    both layouts. Returns the launch counts of the packed card run."""
     from repro_torch import engine
     from repro_torch.core.hll import HLLConfig
     from repro_torch.graph import generators
@@ -697,6 +1054,87 @@ def small_reference(torch, np):
         "identical, degrees/neighborhood/union rtol 1e-5, intersection ie "
         "1e-5 / mle 1e-4, query_batch bit for bit, triangles 1e-4 of the "
         "estimates' scale")
+    return small_packed(torch, np, edges, n, sample, sets)
+
+
+def small_packed(torch, np, edges, n, sample, sets):
+    """The packed engine at RMAT scale 10 on the card, launch counters
+    zeroed just before (its triangles are the engine path of
+    ``ertl_stats_packed``), against the CPU's plain versions (the
+    tolerances of the byte checks) and against the byte kernels on the
+    clamped panel (bit for bit). Returns the launch counts."""
+    from repro_torch import engine
+    from repro_torch.core import degreesketch as dsk
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.kernels import _build, packing
+
+    cfg = HLLConfig(p=P)
+
+    def answers(eng):
+        return {"degrees": eng.degrees(),
+                "neighborhood": eng.neighborhood(T_MAX)[0],
+                "union_size": eng.union_size(sets),
+                "ie": eng.intersection_size(sample, method="ie", iters=10),
+                "mle": eng.intersection_size(sample, method="mle", iters=10),
+                "edge": eng.triangle_heavy_hitters(20, mode="edge"),
+                "vertex": eng.triangle_heavy_hitters(20, mode="vertex")}
+
+    _build.reset_launch_counts()
+    gpu = engine.build(edges, n, cfg, layout="packed", device=DEVICE)
+    got = answers(gpu)
+    batch = gpu.query_batch(degrees=True, vertex_sets=sets, pairs=sample,
+                            iters=10)
+    counts = _build.launch_counts()
+    missing = [k for k, c in counts.items()
+               if k.endswith("_packed") and c == 0]
+    if missing:
+        fail(f"small reference: packed kernels never launched: {missing}")
+    if not (np.array_equal(batch["degrees"], got["degrees"])
+            and np.array_equal(batch["union"], got["union_size"])
+            and np.array_equal(batch["intersection"], got["mle"])):
+        fail("small reference: packed query_batch differs from per-kind "
+             "answers")
+    cpu = engine.build(edges, n, cfg, layout="packed", device="cpu")
+    if not torch.equal(cpu.regs, gpu.regs.cpu()):
+        fail("small reference: packed registers differ between CPU and card")
+    want = answers(cpu)
+    for name in ("degrees", "neighborhood", "union_size"):
+        if not np.allclose(got[name], want[name], rtol=1e-5, atol=0):
+            fail(f"small reference: packed {name} differs between CPU and "
+                 f"card")
+    deg = want["degrees"]
+    scale = 2 * (deg[sample[:, 0]] + deg[sample[:, 1]])
+    for method, rtol in (("ie", 1e-5), ("mle", 1e-4)):
+        if not np.all(np.abs(got[method] - want[method])
+                      <= rtol * (np.abs(want[method]) + scale)):
+            fail(f"small reference: packed intersection {method} differs")
+    est = dsk.edge_triangle_estimates(
+        dsk.DegreeSketch(regs=cpu.regs, n=n, cfg=cfg, layout="packed"), edges)
+    tol = 1e-4 * (np.abs(est) + 2 * (deg[edges[:, 0]] + deg[edges[:, 1]]))
+    vtol = (np.bincount(edges[:, 0], tol, n)
+            + np.bincount(edges[:, 1], tol, n)) / 2
+    for mode, atol in (("edge", tol.max()), ("vertex", vtol.max())):
+        (g_tot, g_vals, _), (c_tot, c_vals, _) = got[mode], want[mode]
+        if not (abs(g_tot - c_tot) <= tol.sum() / 3
+                and np.allclose(g_vals, c_vals, rtol=0, atol=atol)):
+            fail(f"small reference: packed {mode} triangles differ")
+    clamped = answers(engine.LocalEngine.from_regs(
+        packing.unpack_rows(gpu.regs), n, cfg, edges=edges, device=DEVICE))
+    def same(a, b):  # triangle answers are (total, values, ids) tuples
+        if isinstance(a, tuple):
+            return all(np.array_equal(x, y) for x, y in zip(a, b))
+        return np.array_equal(a, b)
+
+    differ = [name for name in got if not same(got[name], clamped[name])]
+    if differ:
+        fail(f"small reference: packed answers differ from the byte kernels "
+             f"on the clamped panel: {differ}")
+    log(f"small reference: packed rmat10 p={P}: registers identical CPU vs "
+        f"card; degrees/neighborhood/union rtol 1e-5, intersection ie 1e-5 "
+        f"/ mle 1e-4, triangles (edge, vertex) 1e-4 of the estimates' scale;"
+        f" card answers equal the byte kernels' on the clamped panel bit for"
+        f" bit; launches {counts}")
+    return counts
 
 
 def small_ads(torch, np, edges, n):
@@ -821,16 +1259,27 @@ def main() -> int:
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; {shape}")
 
     panel = compare_kernels(torch, np, edges, n, pairs, sets, report)
-    phases = [main_path(torch, np, edges, n, pairs, verts, sets, panel)]
-    del panel
+    packed_panel = compare_packed_kernels(torch, np, edges, n, pairs, sets,
+                                          panel, report)
+    counts, byte_deg = main_path(torch, np, edges, n, pairs, verts, sets,
+                                 panel)
+    packed_eng, packed_counts = packed_path(
+        torch, np, edges, n, pairs, verts, sets, panel, packed_panel,
+        byte_deg)
+    phases = [counts, packed_counts,
+              packed_durability(torch, np, edges, n, packed_eng)]
+    del panel, packed_panel, packed_eng
     ads_eng, ads_counts, hist = ads_path(torch, np, edges, n)
     phases += [ads_counts, merge_phase(torch, np, edges, n, ads_eng),
                checkpoint_phase(torch, np, n, ads_eng, hist)]
     del edges, ads_eng
     phases.append(triangle_path(torch, np))
-    small_reference(torch, np)
+    phases.append(small_reference(torch, np))
     for row in rows:
         row["launches"] = sum(c[row["name"]] for c in phases)
+    idle = [row["name"] for row in rows if row["launches"] == 0]
+    if idle:
+        fail(f"kernels never launched on a counted path: {idle}")
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": rows}))
     log(card)

@@ -1,13 +1,17 @@
 """DegreeSketch (paper §3): a queryable sketch table and the triangle
 heavy-hitter queries, Algorithms 4/5 (port of ``repro.core.degreesketch``).
 
-Layout: ``regs: uint8[n_pad, r]``, one HLL row per vertex, on the card
-or the CPU. Every per-edge estimate T̃(xy) is the joint MLE over the rows
+Layout: ``regs: uint8[n_pad, w]``, one HLL row per vertex, on the card
+or the CPU, ``w = r`` bytes (byte layout) or ``r/2`` (packed 4-bit
+layout). Every per-edge estimate T̃(xy) is the joint MLE over the rows
 of x and y (``intersection.mle_intersection``): the ``ertl_stats`` kernel
 builds the Eq. 19 histograms and the estimate kernel the initializer's
 |A|, |B| and |A ∪ B|. Edges go through in blocks of ``EDGE_BLOCK``; each
 edge's estimate is independent of its block, so the block only bounds
-device memory.
+device memory. A packed panel stays packed: each block gathers packed
+rows and the packed kernels read them, where the JAX package unpacks the
+whole panel first; the histograms and the exact packed ``(s, z)`` give
+the same estimates.
 
 Not ported yet: ``accumulate``, ``neighborhood_pass`` and
 ``neighborhood_estimates`` (the engine's ingest and ``neighborhood``
@@ -37,30 +41,34 @@ class DegreeSketch:
     """A queryable accumulated sketch table (the paper's leave-behind D).
 
     Attributes:
-      regs: uint8[n_pad, r] register table.
+      regs: uint8[n_pad, w] register table.
       n: true vertex count (rows >= n are padding).
       cfg: the sketch config.
+      layout: register layout of ``regs``, "byte" or "packed".
     """
 
     regs: torch.Tensor
     n: int
     cfg: HLLConfig
+    layout: str = "byte"
 
     def degrees(self) -> torch.Tensor:
         """d̃(x) for all x < n, float32[n]."""
-        return ops.estimate(self.regs, self.cfg)[: self.n]
+        return ops.estimate(self.regs, self.cfg, layout=self.layout)[: self.n]
 
     def union_size(self, xs) -> torch.Tensor:
         """|∪_{x in xs} N(x)| for one vertex set, a float32 scalar."""
         ids = torch.as_tensor(np.asarray(xs, dtype=np.int32).reshape(1, -1),
                               device=self.regs.device)
         mask = torch.ones(ids.shape, dtype=torch.bool, device=ids.device)
-        return ops.union_estimate(self.regs, ids, mask, self.cfg)[0]
+        return ops.union_estimate(self.regs, ids, mask, self.cfg,
+                                  layout=self.layout)[0]
 
     def intersection_size(self, x: int, y: int) -> torch.Tensor:
         """|N(x) ∩ N(y)| via the Ertl MLE, the T̃(xy) primitive."""
         return intersection.mle_intersection(
-            self.regs[x][None], self.regs[y][None], self.cfg)[0]
+            self.regs[x][None], self.regs[y][None], self.cfg,
+            layout=self.layout)[0]
 
 
 def edge_triangle_estimates(sketch: DegreeSketch, edges: np.ndarray,
@@ -78,7 +86,7 @@ def edge_triangle_estimates(sketch: DegreeSketch, edges: np.ndarray,
         chunk = ends[s:s + block]
         est = intersection.mle_intersection(sketch.regs[chunk[:, 0]],
                                             sketch.regs[chunk[:, 1]],
-                                            sketch.cfg, iters)
+                                            sketch.cfg, iters, sketch.layout)
         out[s:s + len(chunk)] = est.cpu().numpy()
     return out
 

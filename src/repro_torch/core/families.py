@@ -53,8 +53,9 @@ class _Family:
 class HLLFamily(_Family):
     """HyperLogLog: the paper's cardinality-sketch instantiation.
 
-    Both register layouts suit its semantics; the port serves the byte
-    layout so far (``kernels.registry.resolve`` refuses packed).
+    Both register layouts suit its semantics: the Flajolet/beta
+    combinations and the Eq. 19 histograms read registers through
+    ``min(reg, 15)``-safe statistics at the p the packed layout admits.
     """
 
     name = "hll"
@@ -66,7 +67,8 @@ class HLLFamily(_Family):
 
     def empty_table(self, n: int, cfg, layout: str = "byte",
                     device: torch.device | str = "cpu") -> torch.Tensor:
-        """Zeroed uint8[n, r] register table on ``device``."""
+        """Zeroed uint8[n, w] register table on ``device`` (w = r, or r/2
+        packed)."""
         return hll_mod.empty_table(n, cfg, layout=layout, device=device)
 
     def estimate_from_pair_stats(self, stats, sz, cfg, method: str,
@@ -75,9 +77,11 @@ class HLLFamily(_Family):
         return intersection.estimate_from_pair_stats(stats, sz, cfg, method,
                                                      iters=iters)
 
-    def triangle_local(self, regs, n, cfg, edges, k, mode, iters):
-        """Algorithms 4/5 over a single-device byte-layout register panel."""
-        sketch = dsk.DegreeSketch(regs=regs, n=n, cfg=cfg)
+    def triangle_local(self, regs, n, cfg, edges, k, mode, iters,
+                       layout="byte"):
+        """Algorithms 4/5 over a single-device register panel; a packed
+        panel is read packed, block by block (``core.degreesketch``)."""
+        sketch = dsk.DegreeSketch(regs=regs, n=n, cfg=cfg, layout=layout)
         if mode == "edge":
             return dsk.triangle_heavy_hitters(sketch, edges, k, iters=iters)
         if mode == "vertex":

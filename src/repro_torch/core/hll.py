@@ -1,10 +1,12 @@
 """HyperLogLog sketches as dense register tensors (port of ``repro.core.hll``).
 
-A table of sketches is ``uint8[n, r]`` with ``r = 2**p`` (the byte
-layout); register value 0 means empty and inserted values are rho in
-``[1, q+1]``, ``q = 64 - p``. Estimators are pure functions of the per-row
-harmonic statistics ``(s, z)`` = (sum of 2^-reg, number of zero
-registers), so the fused estimate kernels never hand registers back.
+A table of sketches is ``uint8[n, r]`` with ``r = 2**p`` in the byte
+layout, or ``uint8[n, r/2]`` with two 4-bit registers per byte in the
+packed layout (``kernels.packing``); register value 0 means empty and
+inserted values are rho in ``[1, q+1]``, ``q = 64 - p``. Estimators are
+pure functions of the per-row harmonic statistics ``(s, z)`` = (sum of
+2^-reg, number of zero registers), so the fused estimate kernels never
+hand registers back.
 All arithmetic is float32, as in the JAX package.
 """
 from __future__ import annotations
@@ -50,11 +52,18 @@ def rel_std(p: int) -> float:
 
 def empty_table(n: int, cfg: HLLConfig, layout: str = "byte",
                 device: torch.device | str = "cpu") -> torch.Tensor:
-    """Zeroed byte-layout register table ``uint8[n, r]`` on ``device``."""
+    """Zeroed register table for ``n`` sketches under ``layout``, on
+    ``device``.
+
+    Row width is ``r`` bytes for the byte layout and ``r / 2`` for the
+    packed 4-bit-lane layout (``kernels.packing``; the width is computed
+    here so that ``core`` needs no kernels import). The all-zero row is
+    the empty sketch in both layouts.
+    """
+    if layout == "packed":
+        return torch.zeros((n, cfg.r // 2), dtype=torch.uint8, device=device)
     if layout != "byte":
-        raise ValueError(
-            f"layout {layout!r} is not ported yet; only 'byte' is "
-            f"(the packed layout is ROADMAP Queue A item 10)")
+        raise ValueError(f"layout must be 'byte' or 'packed', got {layout!r}")
     return torch.zeros((n, cfg.r), dtype=torch.uint8, device=device)
 
 

@@ -27,7 +27,7 @@ import torch
 
 from repro_torch.core import hll
 from repro_torch.core.hll import HLLConfig
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, packing
 
 __all__ = ["ertl_stats", "log_likelihood", "mle_cardinalities",
            "mle_intersection", "mle_from_stats", "estimate_from_pair_stats",
@@ -38,14 +38,15 @@ NEWTON_ITERS = 50
 _TINY = 1e-38
 
 
-def ertl_stats(a: torch.Tensor, b: torch.Tensor,
-               cfg: HLLConfig) -> torch.Tensor:
-    """Eq. 19 count statistics of register rows a, b: ``uint8[E, r]``.
+def ertl_stats(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
+               layout: str = "byte") -> torch.Tensor:
+    """Eq. 19 count statistics of register rows a, b: ``uint8[E, w]``
+    (w = r, or r/2 on the packed layout).
 
     Returns ``float32[E, 5, q+2]`` stacked as [c_a_lt, c_a_gt, c_b_lt,
     c_b_gt, c_eq], from the ``ertl_stats`` kernel.
     """
-    return ops.ertl_stats(a.contiguous(), b.contiguous(), cfg)
+    return ops.ertl_stats(a.contiguous(), b.contiguous(), cfg, layout=layout)
 
 
 def _survival_weights(q: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -260,25 +261,29 @@ def _initial_theta(ea: torch.Tensor, eb: torch.Tensor,
 
 
 def mle_cardinalities(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
-                      iters: int = NEWTON_ITERS,
+                      iters: int = NEWTON_ITERS, layout: str = "byte",
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """MLE (|A\\B|, |B\\A|, |A ∩ B|) for register rows a, b: ``uint8[E, r]``.
+    """MLE (|A\\B|, |B\\A|, |A ∩ B|) for register rows a, b: ``uint8[E, w]``.
 
     The Eq. 19 histograms come from the ``ertl_stats`` kernel; the
     initializer's |A|, |B| and |A ∪ B| from the estimate kernel's
-    ``(s, z)`` over a, b and their lane-wise max, as the JAX package
-    takes ``hll.estimate`` of a, b and ``hll.merge(a, b)``.
+    ``(s, z)`` over a, b and their register-wise max, as the JAX package
+    takes ``hll.estimate`` of a, b and ``hll.merge(a, b)``. Packed rows
+    merge nibble by nibble (``packing.merge_rows``); a byte-wise max of
+    packed bytes would be wrong.
     """
     a, b = a.contiguous(), b.contiguous()
-    ea, eb, eu = (ops.estimate(rows, cfg)
-                  for rows in (a, b, torch.maximum(a, b)))
-    return mle_from_stats(ertl_stats(a, b, cfg), ea, eb, eu, cfg, iters)
+    ea, eb, eu = (ops.estimate(rows, cfg, layout=layout)
+                  for rows in (a, b, packing.merge_rows(a, b, layout)))
+    return mle_from_stats(ertl_stats(a, b, cfg, layout), ea, eb, eu, cfg,
+                          iters)
 
 
 def mle_intersection(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
-                     iters: int = NEWTON_ITERS) -> torch.Tensor:
+                     iters: int = NEWTON_ITERS,
+                     layout: str = "byte") -> torch.Tensor:
     """|A ∩ B| via the joint MLE, the paper's T̃(xy) primitive (Eq. 10)."""
-    return mle_cardinalities(a, b, cfg, iters)[2]
+    return mle_cardinalities(a, b, cfg, iters, layout)[2]
 
 
 def hessian_overflow_share(stats: torch.Tensor, sz: torch.Tensor,

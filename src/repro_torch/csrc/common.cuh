@@ -1,6 +1,7 @@
 // Shared device helpers for the DegreeSketch kernels (sm_90a): the hash,
-// exact 2^-x, the per-word (s, z) terms, the Eq. 19 histogram update, the
-// row clamp and warp sums.
+// exact 2^-x, the per-word (s, z) terms of both register layouts, the
+// nibble max of the packed layout, the Eq. 19 histogram update, the row
+// clamp and warp sums.
 //
 // The hash is the one of repro/core/hashing.py, computed natively in
 // uint32_t: two murmur3 finalizers with distinct seed mixing, cross-mixed,
@@ -76,6 +77,62 @@ __device__ __forceinline__ void eq19_add(uint32_t x, uint32_t y, int nb,
   }
 }
 
+// Register lanes of one 32-bit word: four bytes on the byte layout, eight
+// 4-bit nibbles on the packed layout (kernels/packing.py; split-half, so
+// the order of registers within a row differs, which no statistic here
+// depends on).
+template <bool kPacked>
+struct Lanes {
+  static constexpr int kBits = kPacked ? 4 : 8;
+  static constexpr int kPerWord = 32 / kBits;
+  static constexpr uint32_t kMask = (1u << kBits) - 1u;
+};
+
+// Nibble-wise max of two packed words (eight 4-bit registers each): a
+// byte-wise max is wrong on packed bytes (0x10 vs 0x01 must give 0x11).
+__device__ __forceinline__ uint32_t nib_max4(uint32_t a, uint32_t b) {
+  return __vmaxu4(a & 0x0F0F0F0Fu, b & 0x0F0F0F0Fu) |
+         (__vmaxu4((a >> 4) & 0x0F0F0F0Fu, (b >> 4) & 0x0F0F0F0Fu) << 4);
+}
+
+// Harmonic term of one register. Byte layout: 2^-x as float. Packed
+// layout: x <= 15, so the sum is kept exactly as the integer
+// sum 2^(15 - x) (at most 2^16 * 2^15 = 2^31 for r <= 2^16) and rounded
+// to float once at the end, so any order of summation gives the same
+// bits (ref.packed_stats does the same on the host).
+template <bool kPacked>
+struct Harmonic {
+  using Sum = float;
+  __device__ static __forceinline__ float term(uint32_t x) {
+    return exp2_neg(x);
+  }
+  __device__ static __forceinline__ float finish(float s) { return s; }
+};
+
+template <>
+struct Harmonic<true> {
+  using Sum = uint32_t;
+  __device__ static __forceinline__ uint32_t term(uint32_t x) {
+    return 0x8000u >> x;
+  }
+  __device__ static __forceinline__ float finish(uint32_t s) {
+    return __uint2float_rn(s) * 3.0517578125e-05f;  // exact: times 2^-15
+  }
+};
+
+// Adds the harmonic terms and zero count of the registers of word w.
+template <bool kPacked>
+__device__ __forceinline__ void add_lane_stats(
+    uint32_t w, typename Harmonic<kPacked>::Sum* s, int* z) {
+  using L = Lanes<kPacked>;
+#pragma unroll
+  for (int k = 0; k < L::kPerWord; ++k) {
+    const uint32_t x = (w >> (L::kBits * k)) & L::kMask;
+    *s += Harmonic<kPacked>::term(x);
+    *z += x == 0u;
+  }
+}
+
 // Row index clamped into [0, n_rows), as a jnp gather clamps: callers
 // validate ids, so this only keeps a stray id in bounds.
 __device__ __forceinline__ int64_t clamp_row(int64_t i, int64_t n_rows) {
@@ -89,6 +146,12 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 __device__ __forceinline__ double warp_sum(double v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
+  return v;
+}
+
+__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
   return v;

@@ -20,16 +20,23 @@
 // shared-memory integer histograms (repro::eq19_add, shared with
 // intersection_stats.cu), and the warp writes the slice out as float32.
 // Register values outside [0, q+2) count in no bin.
+//
+// Packed layout (ertl_stats_packed): rows of r/2 bytes, each 32-bit word
+// split into its eight nibbles in registers; half the bytes in, the same
+// histograms out, bins 16..q+1 empty.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kWarps = 8;
 
+// width: bytes per row (r, or r / 2 packed), a power of two >= 8.
+template <bool kPacked>
 __global__ void ertl_stats_kernel(const uint8_t* __restrict__ a,
                                   const uint8_t* __restrict__ b,
                                   float* __restrict__ stats, int64_t n_pairs,
-                                  int r, int q) {
+                                  int width, int q) {
+  using L = repro::Lanes<kPacked>;
   extern __shared__ int hist_all[];
   const int nb = q + 2;
   const int hsize = 5 * nb;
@@ -40,29 +47,43 @@ __global__ void ertl_stats_kernel(const uint8_t* __restrict__ a,
   if (pair >= n_pairs) return;  // whole warp leaves; no block barrier below
   for (int i = lane; i < hsize; i += 32) hist[i] = 0;
   __syncwarp();
-  const uint32_t* wa = reinterpret_cast<const uint32_t*>(a + pair * r);
-  const uint32_t* wb = reinterpret_cast<const uint32_t*>(b + pair * r);
-  for (int i = lane; i < (r >> 2); i += 32) {
+  const uint32_t* wa = reinterpret_cast<const uint32_t*>(a + pair * width);
+  const uint32_t* wb = reinterpret_cast<const uint32_t*>(b + pair * width);
+  for (int i = lane; i < (width >> 2); i += 32) {
     const uint32_t va = wa[i];
     const uint32_t vb = wb[i];
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      repro::eq19_add((va >> (8 * k)) & 0xFFu, (vb >> (8 * k)) & 0xFFu, nb,
-                      hist);
+    for (int k = 0; k < L::kPerWord; ++k)
+      repro::eq19_add((va >> (L::kBits * k)) & L::kMask,
+                      (vb >> (L::kBits * k)) & L::kMask, nb, hist);
   }
   __syncwarp();
   float* out = stats + pair * hsize;
   for (int i = lane; i < hsize; i += 32) out[i] = static_cast<float>(hist[i]);
 }
 
+template <bool kPacked>
+int launch(const uint8_t* a, const uint8_t* b, float* stats, int64_t n_pairs,
+           int width, int q, cudaStream_t stream) {
+  if (n_pairs == 0) return 0;
+  const size_t smem = static_cast<size_t>(kWarps) * 5 * (q + 2) * sizeof(int);
+  const int64_t blocks = (n_pairs + kWarps - 1) / kWarps;
+  ertl_stats_kernel<kPacked>
+      <<<static_cast<unsigned int>(blocks), kWarps * 32, smem, stream>>>(
+          a, b, stats, n_pairs, width, q);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int ertl_stats(const uint8_t* a, const uint8_t* b, float* stats,
                           int64_t n_pairs, int r, int q, cudaStream_t stream) {
-  if (n_pairs == 0) return 0;
-  const size_t smem = static_cast<size_t>(kWarps) * 5 * (q + 2) * sizeof(int);
-  const int64_t blocks = (n_pairs + kWarps - 1) / kWarps;
-  ertl_stats_kernel<<<static_cast<unsigned int>(blocks), kWarps * 32, smem,
-                      stream>>>(a, b, stats, n_pairs, r, q);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(a, b, stats, n_pairs, r, q, stream);
+}
+
+// r: registers per row; the packed rows are r / 2 bytes (r >= 16).
+extern "C" int ertl_stats_packed(const uint8_t* a, const uint8_t* b,
+                                 float* stats, int64_t n_pairs, int r, int q,
+                                 cudaStream_t stream) {
+  return launch<true>(a, b, stats, n_pairs, r >> 1, q, stream);
 }

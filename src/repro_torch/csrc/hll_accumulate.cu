@@ -20,16 +20,27 @@
 // as the byte it sees is already >= rho, which is the common case once a
 // sketch fills up. The result does not depend on the order of updates,
 // because max is commutative.
+//
+// Packed layout (hll_accumulate_packed): the row is r/2 bytes and the
+// register one nibble, register b at byte b mod r/2, in the high nibble
+// when b >= r/2 (split-half, kernels/packing.py). The value is
+// min(rho, 15), and the same compare-and-swap loop compares and replaces
+// that nibble of the 32-bit word. Registers grow monotonically in both
+// layouts, so the early exit stays valid.
 #include "common.cuh"
 
 namespace {
 
+template <bool kPacked>
 __global__ void hll_accumulate_kernel(uint8_t* __restrict__ regs,
                                       const int32_t* __restrict__ rows,
                                       const uint32_t* __restrict__ keys,
                                       const bool* __restrict__ mask,
                                       int64_t n_edges, int64_t n_rows, int p,
                                       uint32_t s_hi, uint32_t s_lo) {
+  // log2 of the row width in bytes
+  const int row_shift = kPacked ? p - 1 : p;
+  const unsigned int lane_mask = repro::Lanes<kPacked>::kMask;
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t e = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
        e < n_edges; e += stride) {
@@ -38,17 +49,35 @@ __global__ void hll_accumulate_kernel(uint8_t* __restrict__ regs,
     if (row < 0 || row >= n_rows) continue;  // callers validate ids
     uint32_t bucket, rho;
     repro::bucket_rho(keys[e], p, s_hi, s_lo, &bucket, &rho);
-    const int64_t byte = (row << p) + bucket;
+    const uint32_t col = bucket & ((1u << row_shift) - 1u);
+    const int64_t byte = (row << row_shift) + col;
     unsigned int* word = reinterpret_cast<unsigned int*>(regs) + (byte >> 2);
-    const unsigned int shift = static_cast<unsigned int>(byte & 3) * 8u;
+    unsigned int shift = static_cast<unsigned int>(byte & 3) * 8u;
+    if (kPacked) {
+      shift += 4u * (bucket >> row_shift);  // high nibble: b >= r/2
+      rho = rho < 15u ? rho : 15u;
+    }
     unsigned int old = *word;
-    while (((old >> shift) & 0xFFu) < rho) {
-      const unsigned int want = (old & ~(0xFFu << shift)) | (rho << shift);
+    while (((old >> shift) & lane_mask) < rho) {
+      const unsigned int want =
+          (old & ~(lane_mask << shift)) | (rho << shift);
       const unsigned int seen = atomicCAS(word, old, want);
       if (seen == old) break;
       old = seen;
     }
   }
+}
+
+template <bool kPacked>
+int launch(uint8_t* regs, const int32_t* rows, const uint32_t* keys,
+           const bool* mask, int64_t n_edges, int64_t n_rows, int p,
+           uint32_t s_hi, uint32_t s_lo, cudaStream_t stream) {
+  if (n_edges == 0) return 0;
+  constexpr int kThreads = 256;
+  hll_accumulate_kernel<kPacked>
+      <<<repro::grid_for(n_edges, kThreads), kThreads, 0, stream>>>(
+          regs, rows, keys, mask, n_edges, n_rows, p, s_hi, s_lo);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -58,12 +87,18 @@ extern "C" int hll_accumulate(uint8_t* regs, const int32_t* rows,
                               int64_t n_edges, int64_t n_rows, int p,
                               uint32_t s_hi, uint32_t s_lo,
                               cudaStream_t stream) {
-  if (n_edges == 0) return 0;
-  constexpr int kThreads = 256;
-  hll_accumulate_kernel<<<repro::grid_for(n_edges, kThreads), kThreads, 0,
-                          stream>>>(regs, rows, keys, mask, n_edges, n_rows,
-                                    p, s_hi, s_lo);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(regs, rows, keys, mask, n_edges, n_rows, p, s_hi,
+                       s_lo, stream);
+}
+
+// The panel is uint8[n_rows, 2^(p-1)]; p >= 4 (the wrapper checks).
+extern "C" int hll_accumulate_packed(uint8_t* regs, const int32_t* rows,
+                                     const uint32_t* keys, const bool* mask,
+                                     int64_t n_edges, int64_t n_rows, int p,
+                                     uint32_t s_hi, uint32_t s_lo,
+                                     cudaStream_t stream) {
+  return launch<true>(regs, rows, keys, mask, n_edges, n_rows, p, s_hi, s_lo,
+                      stream);
 }
 
 extern "C" const char* repro_error_string(int err) {

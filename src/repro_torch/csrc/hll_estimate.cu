@@ -16,6 +16,14 @@
 // request), build 2^-x exactly from the exponent bits instead of calling
 // exp2f, and reduce s and z with warp shuffles. The wrapper guarantees
 // r >= 8 and an 8-byte-aligned panel.
+//
+// Packed layout (hll_estimate_stats_packed): the row is r/2 bytes, read as
+// 4-byte words (p=8: 32 lanes cover the 128-byte row in one request),
+// each word split into its eight nibbles in registers. s is summed
+// exactly as the integer sum 2^(15 - x) and rounded to float once
+// (repro::Harmonic<true>), so the kernel equals the plain version bit for
+// bit, and equals the byte kernel on the unpacked panel wherever that one
+// is exact (every p <= 9). The bytes bound halves.
 #include "common.cuh"
 
 namespace {
@@ -46,6 +54,29 @@ __global__ void hll_estimate_kernel(const uint8_t* __restrict__ regs,
   }
 }
 
+// width: bytes per packed row (r / 2), a power of two >= 8.
+__global__ void hll_estimate_packed_kernel(const uint8_t* __restrict__ regs,
+                                           float* __restrict__ out,
+                                           int64_t n_rows, int width) {
+  const int lane = threadIdx.x & 31;
+  const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
+  for (int64_t row =
+           (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
+       row < n_rows; row += warps) {
+    const uint32_t* v = reinterpret_cast<const uint32_t*>(regs + row * width);
+    uint32_t s = 0u;
+    int z = 0;
+    for (int i = lane; i < (width >> 2); i += 32)
+      repro::add_lane_stats<true>(v[i], &s, &z);
+    s = repro::warp_sum(s);
+    z = repro::warp_sum(z);
+    if (lane == 0) {
+      out[2 * row] = repro::Harmonic<true>::finish(s);
+      out[2 * row + 1] = static_cast<float>(z);
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" int hll_estimate_stats(const uint8_t* regs, float* out,
@@ -54,5 +85,17 @@ extern "C" int hll_estimate_stats(const uint8_t* regs, float* out,
   constexpr int kThreads = 256;
   hll_estimate_kernel<<<repro::grid_for(n_rows * 32, kThreads), kThreads, 0,
                         stream>>>(regs, out, n_rows, r);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// r: registers per row; the packed row is r / 2 bytes (r >= 16).
+extern "C" int hll_estimate_stats_packed(const uint8_t* regs, float* out,
+                                         int64_t n_rows, int r,
+                                         cudaStream_t stream) {
+  if (n_rows == 0) return 0;
+  constexpr int kThreads = 256;
+  hll_estimate_packed_kernel<<<repro::grid_for(n_rows * 32, kThreads),
+                               kThreads, 0, stream>>>(regs, out, n_rows,
+                                                      r >> 1);
   return static_cast<int>(cudaGetLastError());
 }

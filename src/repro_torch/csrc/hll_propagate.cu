@@ -19,10 +19,22 @@
 // the atomic is skipped when the merge would change nothing, which is
 // most of the time once sketches saturate. A zero source word and a
 // self-edge (including the (0, 0) padding slots) are no-ops and skipped.
+//
+// Packed layout (hll_propagate_packed): the row is r/2 bytes, so a 32-bit
+// word holds eight 4-bit registers and a row half as many words; the merge
+// is repro::nib_max4 (a byte-wise max would be wrong on packed bytes).
+// Both skips stay valid: a zero word is the empty row in both layouts, and
+// merged == old means no nibble grew.
 #include "common.cuh"
 
 namespace {
 
+template <bool kPacked>
+__device__ __forceinline__ uint32_t merge_word(uint32_t a, uint32_t b) {
+  return kPacked ? repro::nib_max4(a, b) : __vmaxu4(a, b);
+}
+
+template <bool kPacked>
 __global__ void hll_propagate_kernel(const uint32_t* __restrict__ regs,
                                      uint32_t* __restrict__ out,
                                      const int32_t* __restrict__ src,
@@ -44,7 +56,7 @@ __global__ void hll_propagate_kernel(const uint32_t* __restrict__ regs,
     uint32_t* o = out + (d << word_shift) + w;
     uint32_t old = *o;
     for (;;) {
-      const uint32_t merged = __vmaxu4(old, v);
+      const uint32_t merged = merge_word<kPacked>(old, v);
       if (merged == old) break;
       const uint32_t seen = atomicCAS(o, old, merged);
       if (seen == old) break;
@@ -53,19 +65,36 @@ __global__ void hll_propagate_kernel(const uint32_t* __restrict__ regs,
   }
 }
 
+// width: bytes per row, a power of two >= 8.
+template <bool kPacked>
+int launch(const uint8_t* regs, uint8_t* out, const int32_t* src,
+           const int32_t* dst, int64_t n_edges, int64_t n_rows, int width,
+           cudaStream_t stream) {
+  if (n_edges == 0) return 0;
+  int word_shift = 0;
+  while ((4 << word_shift) < width) ++word_shift;
+  constexpr int kThreads = 256;
+  hll_propagate_kernel<kPacked>
+      <<<repro::grid_for(n_edges << word_shift, kThreads), kThreads, 0,
+         stream>>>(reinterpret_cast<const uint32_t*>(regs),
+                   reinterpret_cast<uint32_t*>(out), src, dst, n_edges,
+                   n_rows, word_shift);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" int hll_propagate(const uint8_t* regs, uint8_t* out,
                              const int32_t* src, const int32_t* dst,
                              int64_t n_edges, int64_t n_rows, int r,
                              cudaStream_t stream) {
-  if (n_edges == 0) return 0;
-  int word_shift = 0;
-  while ((4 << word_shift) < r) ++word_shift;
-  constexpr int kThreads = 256;
-  hll_propagate_kernel<<<repro::grid_for(n_edges << word_shift, kThreads),
-                         kThreads, 0, stream>>>(
-      reinterpret_cast<const uint32_t*>(regs), reinterpret_cast<uint32_t*>(out),
-      src, dst, n_edges, n_rows, word_shift);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(regs, out, src, dst, n_edges, n_rows, r, stream);
+}
+
+// r: registers per row; the packed row is r / 2 bytes (r >= 16).
+extern "C" int hll_propagate_packed(const uint8_t* regs, uint8_t* out,
+                                    const int32_t* src, const int32_t* dst,
+                                    int64_t n_edges, int64_t n_rows, int r,
+                                    cudaStream_t stream) {
+  return launch<true>(regs, out, src, dst, n_edges, n_rows, r >> 1, stream);
 }

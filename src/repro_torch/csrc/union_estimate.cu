@@ -26,6 +26,13 @@
 // p=16 row drifts by 3e-5 (measured on the H100). There are no atomics,
 // so the same inputs give the same bits on every launch (query_batch's
 // answers equal union_size's bit for bit).
+//
+// Packed layout (union_estimate_stats_packed): rows of r/2 bytes, read as
+// 4-byte words (p=8: one word per lane covers the 128-byte row), merged
+// with repro::nib_max4, and s summed exactly as the integer
+// sum 2^(15 - x) (repro::Harmonic<true>), rounded to float once. That sum
+// equals the byte kernel's double sum on the unpacked rows, which is
+// exact there too.
 #include "common.cuh"
 
 namespace {
@@ -33,23 +40,63 @@ namespace {
 constexpr int kWarps = 8;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
+// One lane's slice of a row, its merge and its statistics, per layout.
+template <bool kPacked>
+struct RowWord {
+  using Word = uint2;  // eight registers
+  using Sum = double;
+  static constexpr int kShift = 3;  // log2 bytes per word
+  __device__ static __forceinline__ Word zero() { return make_uint2(0u, 0u); }
+  __device__ static __forceinline__ Word merge(Word a, Word b) {
+    return make_uint2(__vmaxu4(a.x, b.x), __vmaxu4(a.y, b.y));
+  }
+  __device__ static __forceinline__ void stats(Word a, Sum* s, int* z) {
+    repro::add_word_stats(a.x, s, z);
+    repro::add_word_stats(a.y, s, z);
+  }
+  __device__ static __forceinline__ float finish(Sum s) {
+    return static_cast<float>(s);
+  }
+};
+
+template <>
+struct RowWord<true> {
+  using Word = uint32_t;  // eight 4-bit registers
+  using Sum = uint32_t;
+  static constexpr int kShift = 2;
+  __device__ static __forceinline__ Word zero() { return 0u; }
+  __device__ static __forceinline__ Word merge(Word a, Word b) {
+    return repro::nib_max4(a, b);
+  }
+  __device__ static __forceinline__ void stats(Word a, Sum* s, int* z) {
+    repro::add_lane_stats<true>(a, s, z);
+  }
+  __device__ static __forceinline__ float finish(Sum s) {
+    return repro::Harmonic<true>::finish(s);
+  }
+};
+
+// width: bytes per row (r, or r / 2 packed), a power of two >= 8.
+template <bool kPacked>
 __global__ void union_estimate_kernel(const uint8_t* __restrict__ regs,
                                       const int32_t* __restrict__ ids,
                                       const uint8_t* __restrict__ mask,
                                       float* __restrict__ out, int64_t n_sets,
-                                      int64_t n_rows, int lanes, int r) {
+                                      int64_t n_rows, int lanes, int width) {
+  using R = RowWord<kPacked>;
+  using Word = typename R::Word;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int64_t set = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
   if (set >= n_sets) return;  // whole warp leaves; no block barrier below
   const int32_t* set_ids = ids + set * lanes;
   const uint8_t* set_mask = mask + set * lanes;
-  const int words = r >> 3;
-  double s = 0.0;
+  const int words = width >> R::kShift;
+  typename R::Sum s = 0;
   int z = 0;
   for (int w0 = 0; w0 < words; w0 += 32) {
     const int w = w0 + lane;
-    uint2 acc = make_uint2(0u, 0u);
+    Word acc = R::zero();
     for (int g = 0; g < lanes; g += 32) {
       const bool mine = g + lane < lanes;
       const int row =
@@ -61,25 +108,32 @@ __global__ void union_estimate_kernel(const uint8_t* __restrict__ regs,
         live &= live - 1u;
         const int src = __shfl_sync(kFull, row, j);
         if (w < words) {
-          const uint2 v =
-              reinterpret_cast<const uint2*>(regs + static_cast<int64_t>(src) *
-                                                        r)[w];
-          acc.x = __vmaxu4(acc.x, v.x);
-          acc.y = __vmaxu4(acc.y, v.y);
+          const Word v = reinterpret_cast<const Word*>(
+              regs + static_cast<int64_t>(src) * width)[w];
+          acc = R::merge(acc, v);
         }
       }
     }
-    if (w < words) {
-      repro::add_word_stats(acc.x, &s, &z);
-      repro::add_word_stats(acc.y, &s, &z);
-    }
+    if (w < words) R::stats(acc, &s, &z);
   }
   s = repro::warp_sum(s);
   z = repro::warp_sum(z);
   if (lane == 0) {
-    out[2 * set] = static_cast<float>(s);
+    out[2 * set] = R::finish(s);
     out[2 * set + 1] = static_cast<float>(z);
   }
+}
+
+template <bool kPacked>
+int launch(const uint8_t* regs, const int32_t* ids, const uint8_t* mask,
+           float* out, int64_t n_sets, int64_t n_rows, int lanes, int width,
+           cudaStream_t stream) {
+  if (n_sets == 0) return 0;
+  const int64_t blocks = (n_sets + kWarps - 1) / kWarps;
+  union_estimate_kernel<kPacked>
+      <<<static_cast<unsigned int>(blocks), kWarps * 32, 0, stream>>>(
+          regs, ids, mask, out, n_sets, n_rows, lanes, width);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -88,10 +142,17 @@ extern "C" int union_estimate_stats(const uint8_t* regs, const int32_t* ids,
                                     const uint8_t* mask, float* out,
                                     int64_t n_sets, int64_t n_rows, int lanes,
                                     int r, cudaStream_t stream) {
-  if (n_sets == 0) return 0;
-  const int64_t blocks = (n_sets + kWarps - 1) / kWarps;
-  union_estimate_kernel<<<static_cast<unsigned int>(blocks), kWarps * 32, 0,
-                          stream>>>(regs, ids, mask, out, n_sets, n_rows,
-                                    lanes, r);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(regs, ids, mask, out, n_sets, n_rows, lanes, r,
+                       stream);
+}
+
+// r: registers per row; the packed row is r / 2 bytes (r >= 16).
+extern "C" int union_estimate_stats_packed(const uint8_t* regs,
+                                           const int32_t* ids,
+                                           const uint8_t* mask, float* out,
+                                           int64_t n_sets, int64_t n_rows,
+                                           int lanes, int r,
+                                           cudaStream_t stream) {
+  return launch<true>(regs, ids, mask, out, n_sets, n_rows, lanes, r >> 1,
+                      stream);
 }

@@ -21,13 +21,20 @@
     eng.save(path)                                 # JAX package's format
     back = engine.load(path)
 
+    small = engine.build(edges, n, HLLConfig(p=8), layout="packed")
+    small.save(path)                               # half the register bytes
+    as_byte = engine.load(path, layout="byte")     # exact unpack
+
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, which runs every kernel's plain PyTorch version); with
 ``device=None`` and no card they raise ``RuntimeError`` rather than
-carry on on the CPU. Only the local backend and the byte layout are
-ported so far (snapshots, serving and the sharded backend are not; see
-ROADMAP.md); ``engine.convert`` carries a JAX engine's state across as
-numpy arrays, and checkpoints cross between the packages as files.
+carry on on the CPU. Both register layouts are ported: "byte" (one
+register a byte) and, for HLL, "packed" (two 4-bit registers a byte,
+half the device bytes; registers saturate at 15, ``kernels.packing``).
+Only the local backend is ported so far (snapshots, serving and the
+sharded backend are not; see ROADMAP.md); ``engine.convert`` carries a
+JAX engine's state across as numpy arrays, and checkpoints cross between
+the packages as files, in either layout.
 """
 from __future__ import annotations
 
@@ -37,7 +44,7 @@ import torch
 from repro_torch.engine.base import (ENGINE_FORMAT, SketchEngine,
                                      resolve_device)
 from repro_torch.engine.local import LocalEngine
-from repro_torch.kernels import registry
+from repro_torch.kernels import packing, registry
 
 __all__ = ["SketchEngine", "LocalEngine", "open", "build", "load",
            "default_device"]
@@ -77,7 +84,9 @@ def open(n: int, cfg=None, *, layout: str = "byte", family: str | None = None,
       n: vertex count; ingesting ids >= n raises ``ValueError``.
       cfg: sketch config; its type selects the family (``HLLConfig`` or
         ``ADSConfig``). Default: the family's default config.
-      layout: register layout; only "byte" is ported (ADS is byte-only).
+      layout: register layout, "byte" (one register a byte) or "packed"
+        (two 4-bit registers a byte, saturating at 15; HLL only, an ADS
+        config raises ``ValueError``).
       family: "hll" or "ads", used when no ``cfg`` names one (default
         "hll"); a ``cfg`` of another family raises ``TypeError``.
       device: "cuda", "cpu" or a torch device; ``None`` means the card.
@@ -103,8 +112,8 @@ def build(edges: np.ndarray, n: int | None = None, cfg=None, *,
                 device=device).ingest(edges)
 
 
-def load(path: str, *, step: int | None = None, family: str | None = None,
-         device=None) -> LocalEngine:
+def load(path: str, *, step: int | None = None, layout: str | None = None,
+         family: str | None = None, device=None) -> LocalEngine:
     """Restore a saved engine onto the local backend; queries answer as
     before the save, and ingestion resumes where it stopped.
 
@@ -118,13 +127,17 @@ def load(path: str, *, step: int | None = None, family: str | None = None,
     Args:
       path: the checkpoint directory (holding ``step_<k>``).
       step: the step to load; default the latest.
+      layout: the register layout of the restored engine; default the
+        saved one. On a mismatch the rows convert through
+        ``kernels.packing.to_layout``: byte -> packed saturates registers
+        above 15 (merge-exact), packed -> byte is exact.
       family: an assertion, not an override: a manifest of another family
         raises :class:`~repro_torch.ckpt.checkpoint.FamilyMismatch`
         naming both.
       device: as in :func:`open`; ``None`` means the card.
 
-    Raises ``ValueError`` for a file that is no engine checkpoint and for
-    a packed-layout checkpoint (not ported yet).
+    Raises ``ValueError`` for a file that is no engine checkpoint, and
+    for ``layout="packed"`` on an ADS checkpoint.
     """
     from repro_torch.ckpt.checkpoint import (latest_step, manifest_family,
                                              read_manifest, require_family,
@@ -140,18 +153,17 @@ def load(path: str, *, step: int | None = None, family: str | None = None,
             f"(format={extra.get('format')!r})")
     fam_name = (require_family(extra, family, "load") if family is not None
                 else manifest_family(extra))
-    layout = extra.get("layout", "byte")
-    if layout != "byte":
-        raise ValueError(
-            f"{path!r} step {step} holds a {layout!r}-layout panel; the "
-            f"packed layout is not ported yet (ROADMAP Queue A item 10)")
+    saved = packing.validate_layout(extra.get("layout", "byte"))
+    layout = packing.validate_layout(layout or saved)
     tree = restore_checkpoint(path, step)
     cfg = registry.family(fam_name).config_from_dict(extra["cfg"])
+    registry.resolve(cfg, layout)  # ADS on packed raises before any copy
     edges = (np.asarray(tree["edges"], dtype=np.int32).reshape(-1, 2)
              if "edges" in tree else None)
-    eng = LocalEngine.from_regs(np.asarray(tree["regs"], dtype=np.uint8),
-                                int(extra["n"]), cfg, edges=edges,
-                                device=device)
+    regs = packing.to_layout(torch.from_numpy(
+        np.asarray(tree["regs"], dtype=np.uint8)), saved, layout)
+    eng = LocalEngine.from_regs(regs, int(extra["n"]), cfg, edges=edges,
+                                layout=layout, device=device)
     if "replica_ids" in tree:
         eng.replica_ids = np.asarray(tree["replica_ids"], dtype=np.int64)
     return eng

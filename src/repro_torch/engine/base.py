@@ -1,9 +1,11 @@
 """SketchEngine: the persistent sketch query surface (port of
 ``repro.engine.base``, the subset this slice serves).
 
-An engine owns an accumulated register panel ``uint8[n_pad, r]`` on one
-device. ``ingest(edge_block)`` folds edge blocks into it in place
-(Algorithm 1); queries answer from it:
+An engine owns an accumulated register panel ``uint8[n_pad, w]`` on one
+device: ``w = r`` bytes on the byte layout, ``r/2`` on the packed 4-bit
+layout (``kernels.packing``), whose kernels serve every query alike.
+``ingest(edge_block)`` folds edge blocks into it in place (Algorithm 1);
+queries answer from it:
 
 * ``degrees()``                          — d̃(x) for all x
 * ``union_size(vertex_sets)``            — batched |∪ N(x)| (§6)
@@ -23,8 +25,9 @@ device. ``ingest(edge_block)`` folds edge blocks into it in place
   panels as ``neighborhood``; the curve rows are cached beside them
 
 ``merge(other)`` folds another engine's sketch in by register max
-(Algorithm 6 MERGE), and ``save(path)`` writes a checkpoint in the JAX
-package's format that ``repro_torch.engine.load`` and the JAX package's
+(Algorithm 6 MERGE; nibble-wise on packed panels, converting ``other``'s
+rows when its layout differs), and ``save(path)`` writes a checkpoint in
+the JAX package's format that ``repro_torch.engine.load`` and the JAX package's
 ``repro.engine.load`` both restore. Not ported yet, and absent rather
 than stubbed: snapshots and the replica panel (ROADMAP).
 
@@ -42,7 +45,7 @@ import numpy as np
 import torch
 
 from repro_torch.engine import plans
-from repro_torch.kernels import registry
+from repro_torch.kernels import packing, registry
 
 #: the ``format`` a checkpoint of an engine records (the JAX package's)
 ENGINE_FORMAT = "degreesketch-engine-v1"
@@ -178,7 +181,8 @@ class SketchEngine(abc.ABC):
 
     @property
     def regs(self) -> torch.Tensor:
-        """The accumulated register table uint8[n_pad, r].
+        """The accumulated register table uint8[n_pad, w] (w = r, or r/2 on
+        the packed layout).
 
         Ingest updates this tensor in place (the JAX engine donates it),
         so a handle taken before an ``ingest`` sees the new registers.
@@ -262,7 +266,10 @@ class SketchEngine(abc.ABC):
         sketch family (:class:`~repro_torch.ckpt.checkpoint.FamilyMismatch`
         otherwise), then an identical config and vertex count
         (``ValueError``). ``other``'s rows are copied to this engine's
-        device and maxed into its panel in place. If both engines track
+        device, converted to this engine's layout when the two differ
+        (byte -> packed saturates at 15, which commutes with the max;
+        packed -> byte is exact), and maxed into its panel in place,
+        nibble by nibble on the packed layout. If both engines track
         edges the lists concatenate; if either does not, the merged
         engine stops tracking. Bumps :attr:`version`; ``other`` is left
         untouched. Returns self.
@@ -284,7 +291,12 @@ class SketchEngine(abc.ABC):
                 f"merge requires identical vertex universe: n={self.n} vs "
                 f"n={other.n}")
         head = self._regs[: self.n]
-        torch.maximum(head, other.regs[: self.n].to(self.device), out=head)
+        rows = packing.to_layout(other.regs[: self.n].to(self.device),
+                                 other.layout, self.layout)
+        if self.layout == "packed":
+            head.copy_(packing.merge_rows(head, rows, self.layout))
+        else:
+            torch.maximum(head, rows, out=head)
         self._version += 1
         mine, theirs = self.edges, other.edges
         self._edges0 = (None if mine is None or theirs is None
@@ -540,11 +552,13 @@ class SketchEngine(abc.ABC):
         """The ``(tree, extra)`` pair :meth:`save` persists.
 
         ``tree`` holds host numpy arrays: the registers sliced to the n
-        true rows, the edge list int32[m, 2] if tracked, and the replica
-        id set if a loaded checkpoint carried one. ``extra`` holds the
-        JAX package's manifest keys except ``impl``: that package reads
-        ``impl`` back as its own kernel choice (``ref`` or ``pallas``) and
-        defaults it to ``ref`` when absent, so the port records none.
+        true rows (``uint8[n, r/2]`` on the packed layout, recorded as
+        ``extra["layout"]``), the edge list int32[m, 2] if tracked, and
+        the replica id set if a loaded checkpoint carried one. ``extra``
+        holds the JAX package's manifest keys except ``impl``: that
+        package reads ``impl`` back as its own kernel choice (``ref`` or
+        ``pallas``) and defaults it to ``ref`` when absent, so the port
+        records none.
         Call it between ingest blocks, not during one.
         """
         tree = {"regs": self._regs[: self.n].cpu().numpy()}

@@ -15,7 +15,7 @@ import torch
 from repro_torch.engine import plans
 from repro_torch.engine.base import SketchEngine, pad_vertices, resolve_device
 from repro_torch.graph import stream as gstream
-from repro_torch.kernels import registry
+from repro_torch.kernels import packing, registry
 
 __all__ = ["LocalEngine"]
 
@@ -30,7 +30,7 @@ def _family_table(n_pad: int, cfg, layout: str,
 
 
 class LocalEngine(SketchEngine):
-    """Single-device engine: register table uint8[n_pad, r] on one device."""
+    """Single-device engine: register table uint8[n_pad, w] on one device."""
 
     backend = "local"
 
@@ -40,9 +40,9 @@ class LocalEngine(SketchEngine):
              device=None) -> "LocalEngine":
         """An empty engine over vertex universe [0, n), ready to ingest.
 
-        Allocates the zeroed register table uint8[n_pad, r] (n padded to a
-        multiple of 8) on ``device``; ``None`` means the card, and raises
-        when there is none.
+        Allocates the zeroed register table uint8[n_pad, w] (n padded to a
+        multiple of 8; w = r bytes, or r/2 on the packed layout) on
+        ``device``; ``None`` means the card, and raises when there is none.
         """
         dev = resolve_device(device)
         regs = _family_table(pad_vertices(n, 8), cfg, layout, dev)
@@ -57,11 +57,14 @@ class LocalEngine(SketchEngine):
     @classmethod
     def from_regs(cls, regs, n: int, cfg, *, edges: np.ndarray | None = None,
                   layout: str = "byte", device=None) -> "LocalEngine":
-        """Wrap an existing register table uint8[>=n, r] as a query engine.
+        """Wrap an existing register table uint8[>=n, w] as a query engine.
 
         ``regs`` may be a numpy array or a tensor; it is copied to
-        ``device`` (``None`` means the card). Rows are padded with empty
-        sketches to a multiple of 8. Engines without ``edges`` answer
+        ``device`` (``None`` means the card). The row width must be that
+        of ``layout`` (``packing.row_width``; ``ValueError`` otherwise: a
+        packed panel handed to a byte engine would be misread, not
+        caught downstream). Rows are padded with empty sketches to a
+        multiple of 8. Engines without ``edges`` answer
         degrees and intersections but not neighborhoods; given edges are
         validated against [0, n).
         """
@@ -71,10 +74,11 @@ class LocalEngine(SketchEngine):
         if table.dtype != torch.uint8 or table.dim() != 2:
             raise ValueError(f"regs must be uint8[n, r], got {table.dtype}"
                              f"{list(table.shape)}")
-        if table.shape[1] != cfg.r:
+        want = packing.row_width(cfg.r, layout)
+        if table.shape[1] != want:
             raise ValueError(
                 f"register rows have width {table.shape[1]}, but layout "
-                f"{layout!r} at p={cfg.p} needs width {cfg.r}")
+                f"{layout!r} at p={cfg.p} needs width {want}")
         full = _family_table(pad_vertices(max(n, table.shape[0]), 8), cfg,
                              layout, dev)
         full[: table.shape[0]] = table.to(dev)
@@ -119,4 +123,4 @@ class LocalEngine(SketchEngine):
         self._require_kind("triangle")
         edges = self._require_edges("triangle_heavy_hitters")
         return self.family.triangle_local(self._regs, self.n, self.cfg,
-                                          edges, k, mode, iters)
+                                          edges, k, mode, iters, self.layout)

@@ -28,7 +28,7 @@ import torch
 
 __all__ = ["KERNELS", "NVCC_FLAGS", "build", "library", "launch",
            "launch_counts", "reset_launch_counts", "check_device", "check_panel",
-           "check_ids", "stream_of"]
+           "check_ids", "kernel_name", "stream_of"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -56,6 +56,11 @@ KERNELS = {
     # prev, cur, out, n_rows, r, stream
     "hip_delta_rows": (_P, _P, _P, _I64, _I32, _P),
 }
+#: the packed-layout variants take their byte kernel's arguments, with r
+#: the register count (the row is r/2 bytes)
+KERNELS.update({f"{name}_packed": KERNELS[name] for name in (
+    "hll_accumulate", "hll_estimate_stats", "hll_propagate",
+    "intersection_stats", "union_estimate_stats", "ertl_stats")})
 
 _LAUNCHES = {name: 0 for name in KERNELS}
 _LIB: ctypes.CDLL | None = None
@@ -177,25 +182,32 @@ def check_device(t: torch.Tensor, name: str) -> bool:
 
 
 def check_panel(regs: torch.Tensor, layout: str) -> tuple[int, int]:
-    """Validate a byte-layout register panel; return (rows, r).
+    """Validate a register panel; return (rows, r), r the register count.
 
-    The kernels read rows as 4- and 8-byte words: r must be a power of two
-    >= 8 and the panel 8-byte aligned (any allocation is; an offset view
-    may not be).
+    A byte row is r bytes, a packed row r/2 (two 4-bit registers a byte).
+    The kernels read rows as 4- and 8-byte words: the row width must be a
+    power of two >= 8, so r >= 16 (p >= 4) on the packed layout, and the
+    panel 8-byte aligned (any allocation is; an offset view may not be).
     """
-    if layout != "byte":
-        raise ValueError(
-            f"layout {layout!r} is not ported yet; only 'byte' is "
-            f"(the packed layout is ROADMAP Queue A item 10)")
+    if layout not in ("byte", "packed"):
+        raise ValueError(f"layout must be 'byte' or 'packed', got {layout!r}")
     if regs.dtype != torch.uint8 or regs.dim() != 2:
-        raise ValueError(f"regs must be uint8[V, r], got {regs.dtype}"
+        raise ValueError(f"regs must be uint8[V, w], got {regs.dtype}"
                          f"{list(regs.shape)}")
-    v, r = regs.shape
-    if r < 8 or r & (r - 1):
-        raise ValueError(f"row width r={r} must be a power of two >= 8")
+    v, w = regs.shape
+    if w < 8 or w & (w - 1):
+        if layout == "packed":
+            raise ValueError(f"packed row width {w} must be a power of two "
+                             f">= 8 (r = 2 * {w} registers, p >= 4)")
+        raise ValueError(f"row width r={w} must be a power of two >= 8")
     if not regs.is_contiguous() or regs.data_ptr() % 8:
         raise ValueError("regs must be contiguous and 8-byte aligned")
-    return v, r
+    return v, 2 * w if layout == "packed" else w
+
+
+def kernel_name(name: str, layout: str) -> str:
+    """The C launcher of kernel ``name`` for ``layout``."""
+    return f"{name}_packed" if layout == "packed" else name
 
 
 def check_ids(t: torch.Tensor, name: str, like: torch.Tensor,

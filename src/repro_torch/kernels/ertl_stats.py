@@ -5,7 +5,9 @@ Wrapper of ``csrc/ertl_stats.cu``, the port of the Pallas kernel
 ``(a[i], b[i])`` of two ``uint8[E, r]`` panels, the count histograms
 ``float32[E, 5, q+2]`` ordered ``[c_a_lt, c_a_gt, c_b_lt, c_b_gt,
 c_eq]``, which ``core.intersection.mle_cardinalities`` feeds to the MLE.
-Unlike the Pallas kernel, E need not be a multiple of a pair block.
+Unlike the Pallas kernel, E need not be a multiple of a pair block. On
+the packed layout (``uint8[E, r/2]``, launcher ``ertl_stats_packed``)
+bins 16..q+1 stay empty.
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 :func:`plain`, the plain PyTorch version.
@@ -22,12 +24,13 @@ __all__ = ["ertl_stats", "plain"]
 def plain(a: torch.Tensor, b: torch.Tensor, q: int, *,
           layout: str = "byte") -> torch.Tensor:
     """Plain PyTorch version (``ref.ertl_stats_ref``)."""
-    return ref.ertl_stats_ref(a, b, q)
+    return ref.ertl_stats_ref(a, b, q, layout=layout)
 
 
 def ertl_stats(a: torch.Tensor, b: torch.Tensor, q: int, *,
                layout: str = "byte") -> torch.Tensor:
-    """a, b: uint8[E, r] -> float32[E, 5, q+2] Eq. 19 histograms."""
+    """a, b: uint8[E, r] (packed: uint8[E, r/2]) -> float32[E, 5, q+2]
+    Eq. 19 histograms."""
     on_card = _build.check_device(a, "a")
     e, r = _build.check_panel(a, layout)
     if b.device != a.device or _build.check_panel(b, layout) != (e, r):
@@ -38,6 +41,7 @@ def ertl_stats(a: torch.Tensor, b: torch.Tensor, q: int, *,
     if not on_card:
         return plain(a, b, q, layout=layout)
     stats = torch.empty((e, 5, q + 2), dtype=torch.float32, device=a.device)
-    _build.launch("ertl_stats", a.device, a.data_ptr(), b.data_ptr(),
-                  stats.data_ptr(), e, r, q, _build.stream_of(a))
+    _build.launch(_build.kernel_name("ertl_stats", layout), a.device,
+                  a.data_ptr(), b.data_ptr(), stats.data_ptr(), e, r, q,
+                  _build.stream_of(a))
     return stats

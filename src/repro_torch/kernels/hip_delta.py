@@ -30,6 +30,9 @@ def hip_delta_rows(prev: torch.Tensor, cur: torch.Tensor, *,
                    layout: str = "byte") -> torch.Tensor:
     """prev/cur: uint8[N, r] -> float32[N] summed inverse change
     probabilities of the registers that grew from ``prev`` to ``cur``."""
+    if layout != "byte":
+        raise ValueError(f"hip_delta_rows requires byte layout (the ADS "
+                         f"family never packs), got {layout!r}")
     on_card = _build.check_device(prev, "prev")
     n, r = _build.check_panel(prev, layout)
     _build.check_panel(cur, layout)

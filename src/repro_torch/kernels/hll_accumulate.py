@@ -4,7 +4,9 @@ Wrapper of ``csrc/hll_accumulate.cu``, the port of the Pallas kernel
 ``repro.kernels.hll_accumulate.hll_accumulate``: for every edge e with
 ``mask[e]``, ``regs[rows[e], bucket(keys[e])] max= rho(keys[e])``, with the
 hash computed inside the kernel. The panel is updated in place, as the
-JAX ingest path donates it (``accumulate_donated``), and returned.
+JAX ingest path donates it (``accumulate_donated``), and returned. On the
+packed layout (``uint8[V, r/2]``) the register is one nibble and takes
+``min(rho, 15)``; the launcher is ``hll_accumulate_packed``.
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 :func:`plain`, the plain PyTorch version.
@@ -32,7 +34,8 @@ def _check(regs, rows, keys, mask, p, layout) -> bool:
 
 
 def plain(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
-          mask: torch.Tensor, *, p: int, seed: int = 0) -> torch.Tensor:
+          mask: torch.Tensor, *, p: int, seed: int = 0,
+          layout: str = "byte") -> torch.Tensor:
     """Plain PyTorch version: hash, park masked edges, scatter-max.
 
     Masked edges get rho=0 and park on row 0 (max with 0 is a no-op), the
@@ -45,25 +48,25 @@ def plain(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
         rhos = torch.where(m, rhos, torch.zeros_like(rhos))
         rows_c = torch.where(m, rows[s:s + ref.EDGE_CHUNK],
                              torch.zeros_like(rows[s:s + ref.EDGE_CHUNK]))
-        ref.hll_accumulate_ref(regs, rows_c, buckets, rhos)
+        ref.hll_accumulate_ref(regs, rows_c, buckets, rhos, layout=layout)
     return regs
 
 
 def hll_accumulate(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
                    mask: torch.Tensor, *, p: int, seed: int = 0,
                    layout: str = "byte") -> torch.Tensor:
-    """regs: uint8[V, r] (updated in place); rows: int32[E]; keys: uint32[E];
-    mask: bool[E]. Returns ``regs``.
+    """regs: uint8[V, r] (packed: uint8[V, r/2]), updated in place; rows:
+    int32[E]; keys: uint32[E]; mask: bool[E]. Returns ``regs``.
 
     Row ids must lie in [0, V); the engine validates them on the host
     before they reach the card (the kernel drops an out-of-range row
     rather than write outside the panel).
     """
     if not _check(regs, rows, keys, mask, p, layout):
-        return plain(regs, rows, keys, mask, p=p, seed=seed)
+        return plain(regs, rows, keys, mask, p=p, seed=seed, layout=layout)
     s_hi, s_lo = seed_words(seed)
-    _build.launch("hll_accumulate", regs.device, regs.data_ptr(),
-                  rows.data_ptr(), keys.data_ptr(), mask.data_ptr(),
-                  rows.shape[0], regs.shape[0], p, s_hi, s_lo,
+    _build.launch(_build.kernel_name("hll_accumulate", layout), regs.device,
+                  regs.data_ptr(), rows.data_ptr(), keys.data_ptr(),
+                  mask.data_ptr(), rows.shape[0], regs.shape[0], p, s_hi, s_lo,
                   _build.stream_of(regs))
     return regs

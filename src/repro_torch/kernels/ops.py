@@ -17,6 +17,11 @@
 * hip_delta: two hop panels of one shape, byte layout only,
   ``ops.py:360-376``.
 
+Every HLL op takes ``layout``: on "packed" each wrapper launches its
+packed kernel (rows of r/2 bytes, two 4-bit registers a byte), where the
+JAX package's plain versions unpack or merge nibble planes
+(``ops.py:77-90, 152-160, 191-196, 229-234, 270-276, 313-317``).
+
 The CUDA kernels need no block padding (each masks its own ragged edge),
 and their launch shapes are constants in ``csrc/``; the autotune table of
 the JAX package is not ported yet.
@@ -57,7 +62,7 @@ def propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
 
 
 def estimate(regs: torch.Tensor, cfg, layout: str = "byte") -> torch.Tensor:
-    """Cardinality estimate per sketch row (uint8[N, r]) by ``cfg.estimator``;
+    """Cardinality estimate per sketch row (uint8[N, w]) by ``cfg.estimator``;
     an ``ADSConfig`` gets the Flajolet combination (the HIP curve's
     plain floor)."""
     stats = hll_estimate_stats(regs, layout=layout)
@@ -84,7 +89,7 @@ def intersection_stats(regs: torch.Tensor, pairs: torch.Tensor,
 
 def ertl_stats(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
                layout: str = "byte") -> torch.Tensor:
-    """Eq. 19 statistics float32[E, 5, q+2] for paired rows uint8[E, r]."""
+    """Eq. 19 statistics float32[E, 5, q+2] for paired rows uint8[E, w]."""
     return _ertl_stats(a, b, cfg.q, layout=layout)
 
 

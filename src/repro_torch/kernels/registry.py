@@ -5,13 +5,12 @@ use. The JAX package registers ``(family, op, impl)`` entries and lets
 engines pick ``ref`` or ``pallas``; the port has one implementation per
 op, the CUDA kernel, whose wrapper takes the plain PyTorch version for
 CPU tensors, so a :class:`KernelSet` is resolved from the config and the
-layout alone. It carries the seven ops of the byte layout: accumulate,
-propagate and estimate for both families, union_estimate,
-intersection_stats and ertl_stats for HLL, and hip_delta for ADS. The
-family comes from the config's type (``family_of``). An ADS engine on
-the packed layout fails here as in the JAX package; the packed layout of
-HLL is not ported yet and fails here, up front, naming the ROADMAP item
-that brings it.
+layout alone. It carries seven ops: accumulate, propagate and estimate
+for both families, union_estimate, intersection_stats and ertl_stats for
+HLL, and hip_delta for ADS; each HLL op has a kernel for the byte and
+for the packed 4-bit layout (``kernels.packing``). The family comes from
+the config's type (``family_of``). An ADS engine on the packed layout
+fails here, up front, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -50,7 +49,7 @@ class KernelSet:
     does not depend on ``cfg.estimator``.
 
     Attributes:
-      layout: register-panel layout ("byte").
+      layout: register-panel layout ("byte" or "packed").
       family: sketch-family coordinate ("hll" or "ads").
     """
 
@@ -102,10 +101,8 @@ def resolve(cfg, layout: str = "byte") -> KernelSet:
     """Check that this slice serves ``(cfg, layout)``; bundle a set.
 
     The config's type selects the family (:func:`family_of`). Raises
-    ``TypeError`` for a config of no ported family, ``ValueError`` for a
-    layout the family does not tolerate (ADS is byte-only), and
-    ``ValueError`` for the packed layout of HLL, which is not ported yet
-    (ROADMAP Queue A item 10).
+    ``TypeError`` for a config of no ported family and ``ValueError``
+    for a layout the family does not tolerate (ADS is byte-only).
     """
     if layout not in ("byte", "packed"):
         raise ValueError(f"layout must be 'byte' or 'packed', got {layout!r}")
@@ -115,7 +112,4 @@ def resolve(cfg, layout: str = "byte") -> KernelSet:
             f"sketch family {fam.name!r} supports layouts {fam.layouts}, "
             f"not {layout!r} (ADS inverse probabilities need full-width "
             f"registers)")
-    if layout == "packed":
-        raise ValueError("the packed layout is not ported yet "
-                         "(ROADMAP Queue A item 10)")
     return KernelSet(layout=layout, family=fam.name)

@@ -6,7 +6,9 @@ padded id panel ``int32[B, L]`` with validity mask ``bool[B, L]``, the
 lane-wise max of the unmasked member rows, reduced to ``(s, z)`` and
 returned as ``float32[B, 2]``. Masked lanes merge the empty row; a fully
 masked row gives the empty sketch's ``(r, r)``. Unlike the Pallas
-kernel, B need not be a multiple of a set block.
+kernel, B need not be a multiple of a set block. On the packed layout
+(``uint8[V, r/2]``, launcher ``union_estimate_stats_packed``) the rows
+merge nibble by nibble and ``s`` is summed exactly.
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 :func:`plain`, the plain PyTorch version.
@@ -23,14 +25,15 @@ __all__ = ["union_estimate_stats", "plain"]
 def plain(regs: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor, *,
           layout: str = "byte") -> torch.Tensor:
     """Plain PyTorch version (``ref.union_estimate_ref``), float32[B, 2]."""
-    s, z = ref.union_estimate_ref(regs, ids, mask)
+    s, z = ref.union_estimate_ref(regs, ids, mask, layout=layout)
     return torch.stack([s, z], dim=1)
 
 
 def union_estimate_stats(regs: torch.Tensor, ids: torch.Tensor,
                          mask: torch.Tensor, *,
                          layout: str = "byte") -> torch.Tensor:
-    """regs: uint8[V, r]; ids: int32[B, L] in [0, V); mask: bool[B, L],
+    """regs: uint8[V, r] (packed: uint8[V, r/2]); ids: int32[B, L] in
+    [0, V); mask: bool[B, L],
     L >= 1 -> float32[B, 2] = (s, z) of each set's masked union row."""
     on_card = _build.check_device(regs, "regs")
     v, r = _build.check_panel(regs, layout)
@@ -48,7 +51,8 @@ def union_estimate_stats(regs: torch.Tensor, ids: torch.Tensor,
         return plain(regs, ids, mask, layout=layout)
     b, lanes = ids.shape
     out = torch.empty((b, 2), dtype=torch.float32, device=regs.device)
-    _build.launch("union_estimate_stats", regs.device, regs.data_ptr(),
+    _build.launch(_build.kernel_name("union_estimate_stats", layout),
+                  regs.device, regs.data_ptr(),
                   ids.data_ptr(), mask.data_ptr(), out.data_ptr(), b, v,
                   lanes, r, _build.stream_of(regs))
     return out

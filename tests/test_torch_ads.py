@@ -390,8 +390,8 @@ def test_family_selection():
 def test_numpy_state_carries_the_family(pair):
     want, got, edges, n = pair
     regs, n2, fields, edges2 = convert.to_numpy_state(got)
-    assert fields == {"family": "ads", "p": got.cfg.p, "seed": 0,
-                      "estimator": "hip"}
+    assert fields == {"family": "ads", "layout": "byte", "p": got.cfg.p,
+                      "seed": 0, "estimator": "hip"}
     moved = convert.from_numpy_state(np.asarray(want.regs), n, fields, edges,
                                      device="cpu")
     assert moved.family.name == "ads" and moved.cfg == got.cfg

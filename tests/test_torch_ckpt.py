@@ -257,12 +257,17 @@ def test_load_family_mismatch_names_both(graph, tmp_path):
                        device="cpu").family.name == "ads"
 
 
-def test_packed_checkpoint_raises(graph, tmp_path):
+def test_packed_checkpoint_loads(graph, tmp_path):
+    """A packed checkpoint of the JAX package loads packed, registers bit
+    for bit (the packed refusal of earlier slices is gone)."""
     edges, n = graph
-    jax_engine.build(edges, n, JaxHLLConfig(p=P), impl="ref",
-                     layout="packed").save(str(tmp_path))
-    with pytest.raises(ValueError, match="(?s)packed.*ROADMAP"):
-        engine.load(str(tmp_path), device="cpu")
+    ref = jax_engine.build(edges, n, JaxHLLConfig(p=P), impl="ref",
+                           layout="packed")
+    ref.save(str(tmp_path))
+    back = engine.load(str(tmp_path), device="cpu")
+    assert back.layout == "packed" and back.regs.shape[1] == (1 << P) // 2
+    np.testing.assert_array_equal(back.regs.numpy(), np.asarray(ref.regs))
+    np.testing.assert_array_equal(back.edges, np.asarray(ref.edges))
 
 
 def test_non_engine_and_view_dtype_checkpoints_raise(tmp_path):

@@ -10,10 +10,12 @@ with one, from the repository root:
 which the port's machine need not have; this file imports only the port.)
 Shapes sweep what ``chip_smoke.py``'s single p=8 run does not: other
 precisions, ragged sizes, masked edges and set lanes, self-loops,
-duplicate edges and ids, register bytes above q + 1, and hop panels
-whose registers fell. Tolerances as in ``tests/test_torch_kernels.py``:
-panels, histograms and zero counts exact, harmonic sums ``rtol=1e-6``,
-HIP increments exact (both sum exactly and round once); the card engine
+duplicate edges and ids, register bytes above q + 1, hop panels whose
+registers fell, and the packed layout's six kernels (p = 4-16, registers
+at and above 15 before packing, the nibble-merge trap, exact sums).
+Tolerances as in ``tests/test_torch_kernels.py``: panels, histograms and
+zero counts exact, harmonic sums ``rtol=1e-6`` (packed sums exact), HIP
+increments exact (both sum exactly and round once); the card engine
 against the CPU engine as the CPU parity tests hold the port to JAX
 (estimates 1e-5, MLE 1e-4 of the estimates' scale).
 """
@@ -288,3 +290,206 @@ def test_engine_on_the_card_matches_the_cpu(dev, estimator):
     np.testing.assert_allclose(est, cpu.degrees(), rtol=1e-5)
     np.testing.assert_allclose(card.neighborhood(3)[0], cpu.neighborhood(3)[0],
                                rtol=1e-5)
+
+
+# ------------------------------------------------------- packed layout
+# Each packed kernel against its plain version: panels, histograms, zero
+# counts and harmonic sums all exactly equal (packed sums are exact
+# integers in both), at p = 4-16, ragged sizes, registers at and above 15
+# before packing, and the nibble-merge trap.
+
+def _packed_panel(rng, v, p, dev, hi=22):
+    """A packed panel from byte registers up to ``hi`` (saturating)."""
+    from repro_torch.kernels import packing
+    full = rng.integers(0, hi, (v, 1 << p)).astype(np.uint8)
+    return packing.pack_rows(torch.from_numpy(full)).to(dev)
+
+
+@pytest.mark.parametrize("p", [4, 8, 12, 16])
+def test_packed_accumulate_matches_plain(dev, p):
+    """2^21 inserts into 333 rows: some keys have rho > 15 and saturate."""
+    rng = np.random.default_rng(p + 900)
+    v, e = 333, 1 << 21
+    regs = _packed_panel(rng, v, p, dev, hi=16)
+    rows = torch.from_numpy(rng.integers(0, v, e).astype(np.int32)).to(dev)
+    keys = torch.from_numpy(rng.integers(0, 2 ** 32, e, dtype=np.uint64)
+                            .astype(np.uint32)).to(dev)
+    mask = torch.from_numpy(rng.random(e) > 0.1).to(dev)
+    want = hll_accumulate.plain(regs.clone(), rows, keys, mask, p=p, seed=3,
+                                layout="packed")
+    got = _launched("hll_accumulate_packed",
+                    lambda: hll_accumulate.hll_accumulate(
+                        regs, rows, keys, mask, p=p, seed=3,
+                        layout="packed"))
+    assert got.data_ptr() == regs.data_ptr()
+    assert torch.equal(got, want)
+    assert bool(((got >> 4) == 15).any() | ((got & 15) == 15).any())
+
+
+@pytest.mark.parametrize("p", list(range(4, 17)))
+@pytest.mark.parametrize("n", [1, 1001])
+def test_packed_estimate_matches_plain(dev, p, n):
+    rng = np.random.default_rng(p * 10 + n + 1)
+    regs = _packed_panel(rng, n, p, dev)
+    regs[: n // 3] = 0
+    got = _launched("hll_estimate_stats_packed",
+                    lambda: hll_estimate.hll_estimate_stats(
+                        regs, layout="packed"))
+    assert torch.equal(got, hll_estimate.plain(regs, layout="packed"))
+    if p <= 9:  # the byte kernel on the unpacked panel is exact there too
+        from repro_torch.kernels import packing
+        assert torch.equal(got, hll_estimate.hll_estimate_stats(
+            packing.unpack_rows(regs)))
+
+
+@pytest.mark.parametrize("p", [4, 8, 12, 16])
+def test_packed_propagate_matches_plain(dev, p):
+    rng = np.random.default_rng(p + 910)
+    v, e = 500, 20_000
+    regs = _packed_panel(rng, v, p, dev)
+    regs[rng.random(v) < 0.3] = 0
+    src = rng.integers(0, v, e).astype(np.int32)
+    dst = rng.integers(0, v, e).astype(np.int32)
+    dst[::7] = src[::7]
+    src[1::9], dst[1::9] = 5, 9
+    src_t, dst_t = (torch.from_numpy(x).to(dev) for x in (src, dst))
+    got = _launched("hll_propagate_packed",
+                    lambda: hll_propagate.hll_propagate(
+                        regs, src_t, dst_t, layout="packed"))
+    assert torch.equal(got, hll_propagate.plain(regs, src_t, dst_t,
+                                                layout="packed"))
+
+
+def test_packed_nibble_merge_trap(dev):
+    """0x10 merged with 0x01 is 0x11 in propagate, union and the engine's
+    merge; a byte-wise max would give 0x10."""
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    regs = torch.zeros((4, 8), dtype=torch.uint8, device=dev)
+    regs[0, :] = 0x10
+    regs[1, :] = 0x01
+    src = torch.tensor([1], dtype=torch.int32, device=dev)
+    dst = torch.tensor([0], dtype=torch.int32, device=dev)
+    out = hll_propagate.hll_propagate(regs, src, dst, layout="packed")
+    assert bool((out[0] == 0x11).all())
+    ids = torch.tensor([[0, 1]], dtype=torch.int32, device=dev)
+    mask = torch.ones((1, 2), dtype=torch.bool, device=dev)
+    got = union_estimate.union_estimate_stats(regs, ids, mask,
+                                              layout="packed")
+    assert got[0].tolist() == [16 * 0.5, 0.0]  # sixteen registers of 1
+    a = engine.LocalEngine.from_regs(regs[:1], 1, HLLConfig(p=4),
+                                     layout="packed")
+    a.merge(engine.LocalEngine.from_regs(regs[1:2], 1, HLLConfig(p=4),
+                                         layout="packed"))
+    assert bool((a.regs[0] == 0x11).all())
+
+
+@pytest.mark.parametrize("p", [4, 8, 16])
+@pytest.mark.parametrize("b", [1, 77, 4096])
+def test_packed_intersection_stats_match_plain(dev, p, b):
+    rng = np.random.default_rng(p * 100 + b + 7)
+    v, q = 257, 64 - p
+    regs = _packed_panel(rng, v, p, dev)
+    ids = torch.from_numpy(rng.integers(0, v, (b, 2)).astype(np.int32)).to(dev)
+    pa, pb = ids[:, 0].contiguous(), ids[:, 1].contiguous()
+    st, sz = _launched("intersection_stats_packed",
+                       lambda: intersection_stats.intersection_stats(
+                           regs, pa, pb, q, layout="packed"))
+    st_p, sz_p = intersection_stats.plain(regs, pa, pb, q, layout="packed")
+    assert torch.equal(st, st_p) and torch.equal(sz, sz_p)
+
+
+@pytest.mark.parametrize("p", [4, 8, 16])
+@pytest.mark.parametrize("b", [1, 77, 4096])
+@pytest.mark.parametrize("lanes", [1, 64])
+def test_packed_union_estimate_matches_plain(dev, p, b, lanes):
+    rng = np.random.default_rng(p * 1000 + b + lanes + 3)
+    v = 257
+    regs = _packed_panel(rng, v, p, dev)
+    regs[0] = 0xFF  # a masked lane that read its padding id 0 would show
+    ids = rng.integers(0, v, (b, lanes)).astype(np.int32)
+    lens = rng.integers(0, lanes + 1, b)
+    lens[::7] = 0
+    mask = np.arange(lanes)[None, :] < lens[:, None]
+    ids[~mask] = 0
+    ids_t = torch.from_numpy(ids).to(dev)
+    mask_t = torch.from_numpy(mask).to(dev)
+    got = _launched("union_estimate_stats_packed",
+                    lambda: union_estimate.union_estimate_stats(
+                        regs, ids_t, mask_t, layout="packed"))
+    assert torch.equal(got, union_estimate.plain(regs, ids_t, mask_t,
+                                                 layout="packed"))
+    empty = torch.from_numpy(~mask.any(axis=1)).to(dev)
+    assert bool((got[empty] == float(1 << p)).all())
+
+
+@pytest.mark.parametrize("p", [4, 8, 16])
+@pytest.mark.parametrize("b", [1, 77, 4096])
+def test_packed_ertl_stats_match_plain(dev, p, b):
+    rng = np.random.default_rng(p * 100 + b + 11)
+    q = 64 - p
+    a = _packed_panel(rng, b, p, dev)
+    c = _packed_panel(rng, b, p, dev)
+    c[::5] = a[::5]
+    got = _launched("ertl_stats_packed",
+                    lambda: ertl_stats.ertl_stats(a, c, q, layout="packed"))
+    assert torch.equal(got, ertl_stats.plain(a, c, q, layout="packed"))
+    assert float(got[:, :, 16:].sum()) == 0
+
+
+def test_packed_engine_on_the_card_matches_the_cpu(dev):
+    """The packed engine through the packed kernels: the same registers as
+    the CPU's plain versions, answers as the byte engine test holds them,
+    and the byte engine's answers on the clamped panel."""
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.graph import generators
+    from repro_torch.kernels import packing
+    edges = generators.rmat(9, 8, seed=5)
+    n = 1 << 9
+    cfg = HLLConfig(p=8)
+    cpu = engine.build(edges, n, cfg, layout="packed", device="cpu")
+    before = _build.launch_counts()
+    card = engine.build(edges, n, cfg, layout="packed")
+    assert torch.equal(card.regs.cpu(), cpu.regs)
+    rng = np.random.default_rng(5)
+    sets = [rng.integers(0, n, rng.integers(1, 70)) for _ in range(40)]
+    pairs = edges[rng.choice(len(edges), 50, replace=False)]
+    np.testing.assert_allclose(card.degrees(), cpu.degrees(), rtol=1e-5)
+    np.testing.assert_allclose(card.neighborhood(3)[0],
+                               cpu.neighborhood(3)[0], rtol=1e-5)
+    np.testing.assert_allclose(card.union_size(sets), cpu.union_size(sets),
+                               rtol=1e-5)
+    batch = card.query_batch(degrees=True, vertex_sets=sets, pairs=pairs,
+                             iters=10)
+    assert np.array_equal(batch["intersection"],
+                          card.intersection_size(pairs, iters=10))
+    byte = engine.LocalEngine.from_regs(packing.unpack_rows(card.regs), n,
+                                        cfg, edges=edges)
+    assert np.array_equal(card.degrees(), byte.degrees())
+    assert np.array_equal(card.union_size(sets), byte.union_size(sets))
+    assert np.array_equal(card.intersection_size(pairs, iters=10),
+                          byte.intersection_size(pairs, iters=10))
+    from repro_torch.core import degreesketch as dsk
+    est = dsk.edge_triangle_estimates(
+        dsk.DegreeSketch(regs=cpu.regs, n=n, cfg=cfg, layout="packed"),
+        edges, iters=10)
+    deg = cpu.degrees()
+    # |A u B| <= |A| + |B|: the terms of the difference, as in the tests
+    tol = 1e-4 * (np.abs(est) + 2 * (deg[edges[:, 0]] + deg[edges[:, 1]]))
+    vtol = (np.bincount(edges[:, 0], tol, n)
+            + np.bincount(edges[:, 1], tol, n)) / 2
+    for mode, atol in (("edge", tol.max()), ("vertex", vtol.max())):
+        tot, vals, _ = card.triangle_heavy_hitters(10, mode=mode, iters=10)
+        w_tot, w_vals, _ = cpu.triangle_heavy_hitters(10, mode=mode,
+                                                      iters=10)
+        assert abs(tot - w_tot) <= tol.sum() / 3
+        np.testing.assert_allclose(vals, w_vals, rtol=0, atol=atol)
+    after = _build.launch_counts()
+    for name in ("hll_accumulate_packed", "hll_estimate_stats_packed",
+                 "hll_propagate_packed", "union_estimate_stats_packed",
+                 "intersection_stats_packed", "ertl_stats_packed"):
+        assert after[name] > before[name], name
+    left = engine.build(edges[0::2], n, cfg, layout="packed")
+    left.merge(engine.build(edges[1::2], n, cfg, device="cpu"))  # byte
+    assert torch.equal(left.regs, card.regs)

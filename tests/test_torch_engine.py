@@ -20,6 +20,7 @@ from repro import engine as jax_engine  # noqa: E402
 from repro.core.hll import HLLConfig as JaxConfig  # noqa: E402
 from repro.graph.stream import EdgeStream  # noqa: E402
 from repro_torch import engine  # noqa: E402
+from repro_torch.core.ads import ADSConfig  # noqa: E402
 from repro_torch.core.hll import HLLConfig  # noqa: E402
 from repro_torch.engine import convert  # noqa: E402
 from repro_torch.graph import generators  # noqa: E402
@@ -199,7 +200,8 @@ def test_from_numpy_state_answers_the_same(pair):
                                   port.neighborhood(2)[0])
     regs, n2, fields2, edges2 = convert.to_numpy_state(moved)
     np.testing.assert_array_equal(regs, np.asarray(ref.regs)[:n])
-    assert n2 == n and fields2 == {"family": "hll", **fields}
+    assert n2 == n and fields2 == {"family": "hll", "layout": "byte",
+                                   **fields}
     np.testing.assert_array_equal(edges2, edges)
 
 
@@ -228,11 +230,13 @@ def test_out_of_range_ids_raise():
 
 def test_unported_options_raise():
     from repro_torch.kernels import registry
-    with pytest.raises(ValueError, match="ROADMAP"):
-        engine.open(16, HLLConfig(p=4), layout="packed", device="cpu")
+    # the packed layout of HLL is ported: it resolves and opens half-width
+    assert engine.open(16, HLLConfig(p=4), layout="packed",
+                       device="cpu").regs.shape == (16, 8)
     assert registry.family("ads").name == "ads"  # ported since
-    with pytest.raises(ValueError, match="ROADMAP"):
-        registry.resolve(HLLConfig(p=4), layout="packed")
+    assert registry.resolve(HLLConfig(p=4), layout="packed").layout == "packed"
+    with pytest.raises(ValueError, match="ADS"):  # ADS stays byte-only
+        registry.resolve(ADSConfig(p=4), layout="packed")
     eng = engine.LocalEngine.from_regs(np.zeros((8, 16), np.uint8), 8,
                                        HLLConfig(p=4), device="cpu")
     with pytest.raises(ValueError, match="without edges"):

@@ -239,10 +239,16 @@ def test_padded_pairs_gather_row_zero():
     (hll_propagate, ("ids", "ids")),
 ])
 def test_wrappers_reject_packed_layout(fn, args):
-    regs = torch.zeros((8, 16), dtype=torch.uint8)
+    """A packed row must be a power of two >= 8 bytes (r >= 16, p >= 4),
+    for the kernels' word reads; a narrower packed panel and an unknown
+    layout raise."""
     ids = torch.zeros(2, dtype=torch.int32)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        fn(regs, *(ids for _ in args), layout="packed")
+    with pytest.raises(ValueError, match="packed row width 4"):
+        fn(torch.zeros((8, 4), dtype=torch.uint8), *(ids for _ in args),
+           layout="packed")
+    with pytest.raises(ValueError, match="layout"):
+        fn(torch.zeros((8, 16), dtype=torch.uint8), *(ids for _ in args),
+           layout="nibble")
 
 
 def test_wrappers_check_dtypes_and_shapes():

@@ -107,8 +107,9 @@ def test_ertl_wrapper_checks_inputs():
         ertl_stats.ertl_stats(a, torch.zeros((4, 32), dtype=torch.uint8), 60)
     with pytest.raises(ValueError):
         ertl_stats.ertl_stats(a, a, 0)
+    narrow = torch.zeros((4, 4), dtype=torch.uint8)  # packed r=8 < 16
     with pytest.raises(ValueError, match="packed"):
-        ertl_stats.ertl_stats(a, a, 60, layout="packed")
+        ertl_stats.ertl_stats(narrow, narrow, 60, layout="packed")
 
 
 def _sketch_rows(p, seed, n_sets=40, n_pairs=48):

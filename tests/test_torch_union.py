@@ -119,8 +119,9 @@ def test_union_wrapper_checks_inputs():
         union_estimate.union_estimate_stats(regs, ids, mask[:, :2])
     with pytest.raises(ValueError):
         union_estimate.union_estimate_stats(regs, ids[:, :0], mask[:, :0])
-    with pytest.raises(ValueError, match="packed"):
-        union_estimate.union_estimate_stats(regs, ids, mask, layout="packed")
+    with pytest.raises(ValueError, match="packed"):  # packed r=8 < 16
+        union_estimate.union_estimate_stats(regs[:, :4].contiguous(), ids,
+                                            mask, layout="packed")
 
 
 @pytest.fixture(scope="module", params=CASES,
