@@ -17,7 +17,16 @@ Phases, one line each:
 4. kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main path's shapes, with its time, the plain version's,
    the bound (bytes this run's data needs over 3.35 TB/s) and, for
-   accumulate, the ``scatter_reduce_`` yardstick; ``hip_delta_rows`` on
+   accumulate, the ``scatter_reduce_`` yardstick. Accumulate runs the
+   whole graph in one launch (every edge live, no mask) and is timed at
+   the engine's launch shape, 2 x ``INGEST_BLOCK`` directed edges built
+   on the card in the engine's order, on a fresh panel (ns per directed
+   edge printed), and as a build's launches in a row, which must give
+   the one-launch panel; propagate runs on the engine's dst-sorted
+   routing, whose build (copy, orientations, stable sort on the card,
+   slice by slice) is timed on a line of its own with the device memory
+   it takes;
+   ``hip_delta_rows`` on
    ``D^1``/``D^2`` of the scale-22 panel and on a sweep of ragged row
    counts with registers up to ``max_register`` and falling lanes, equal
    bit for bit; then each packed kernel on the packed scale-22 panel
@@ -25,9 +34,11 @@ Phases, one line each:
    and to the byte kernel on the unpacked (clamped) panel, the packed
    accumulate equal to ``pack_rows`` of the byte panel and the packed
    propagate to ``pack_rows`` of the byte pass;
-5. main path, with launch counters zeroed just before: ``engine.build``,
-   ``degrees`` (mean relative error against exact degrees),
-   ``neighborhood(3)``, ``intersection_size`` on 16,384 edge pairs with
+5. main path, with launch counters zeroed just before: ``engine.build``
+   (``hll_accumulate`` launched once per ``INGEST_BLOCK`` chunk, 16
+   times at scale 22), ``degrees`` (mean relative error against exact
+   degrees), ``neighborhood(3)`` (``hll_propagate`` launched twice),
+   ``intersection_size`` on 16,384 edge pairs with
    the MLE, ``union_size`` on the 4,096 sets (each must equal hop 2 of
    ``neighborhood(3)`` for its vertex) and ``query_batch`` over all three
    (bit for bit the per-kind answers); every kernel of the path must have
@@ -35,7 +46,8 @@ Phases, one line each:
    Hessian-overflow flag holds still;
 5b. packed main path, once the byte engine is freed, counters zeroed just
    before: the same steps with ``layout="packed"``, each timed, with peak
-   memory; the panel equal to ``pack_rows`` of the byte panel, every
+   memory and the same launch counts; the panel equal to ``pack_rows`` of
+   the byte panel, every
    answer equal to the byte kernels' on the clamped panel bit for bit,
    ``pack_rows`` commuting with the propagate passes, the count of byte
    registers above 15 and of rows whose degrees differ from the byte
@@ -196,7 +208,6 @@ def compare_kernels(torch, np, edges, n, pairs, sets, report):
     from repro_torch.kernels import ertl_stats, hll_accumulate, hll_estimate
     from repro_torch.kernels import hll_propagate, intersection_stats
     from repro_torch.kernels import union_estimate
-    from repro_torch.core.hashing import bucket_rho
 
     dev = torch.device(DEVICE)
     r, q = 1 << P, 64 - P
@@ -204,47 +215,19 @@ def compare_kernels(torch, np, edges, n, pairs, sets, report):
     directed = np.concatenate([edges, edges[:, ::-1]])
     rows = torch.from_numpy(np.ascontiguousarray(directed[:, 0])).to(dev)
     keys = torch.from_numpy(directed[:, 1].astype(np.uint32)).to(dev)
-    live = torch.ones(rows.shape, dtype=torch.bool, device=dev)
 
-    # accumulate: the whole graph through the kernel and the plain version
+    # accumulate: the whole graph through the kernel and the plain version,
+    # every edge live (mask=None, as the engine launches it)
     regs_k = torch.zeros((n_pad, r), dtype=torch.uint8, device=dev)
     regs_p = torch.zeros_like(regs_k)
-    hll_accumulate.hll_accumulate(regs_k, rows, keys, live, p=P, seed=0)
-    hll_accumulate.plain(regs_p, rows, keys, live, p=P, seed=0)
+    hll_accumulate.hll_accumulate(regs_k, rows, keys, p=P, seed=0)
+    hll_accumulate.plain(regs_p, rows, keys, p=P, seed=0)
     torch.cuda.synchronize()
     err = int((regs_k.to(torch.int16) - regs_p.to(torch.int16)).abs().max())
     if err != 0:
         fail(f"hll_accumulate differs from its plain version (max {err})")
-    del regs_p
-    # timing at the main path's block shape: 2 * INGEST_BLOCK directed edges
-    blk = min(2 * 32768, len(directed) // 4)
-    n_blk = min(16, len(directed) // blk)
-    blocks = [slice(i * blk, (i + 1) * blk) for i in range(n_blk)]
-    mask = torch.ones(blk, dtype=torch.bool, device=dev)
-    fresh = [torch.zeros((n_pad, r), dtype=torch.uint8, device=dev)
-             for _ in range(3)]
-    it = iter(blocks * 3)
-
-    def nxt(panel):
-        sl = next(it)
-        return panel, rows[sl], keys[sl]
-
-    ms = cuda_ms(torch, lambda g, ro, ke: hll_accumulate.hll_accumulate(
-        g, ro, ke, mask, p=P), n_blk, lambda: nxt(fresh[0]))
-    plain_ms = cuda_ms(torch, lambda g, ro, ke: hll_accumulate.plain(
-        g, ro, ke, mask, p=P), n_blk, lambda: nxt(fresh[1]))
-    flat_idx = []
-    for sl in blocks:
-        b, rho = bucket_rho(keys[sl], P)
-        flat_idx.append((rows[sl].to(torch.int64) * r + b, rho))
-    it_lib = iter(flat_idx)
-    lib_ms = cuda_ms(torch, lambda i, v: fresh[2].view(-1).scatter_reduce_(
-        0, i, v, reduce="amax"), n_blk, lambda: next(it_lib))
-    touched = torch.unique(flat_idx[0][0]).numel()
-    report("hll_accumulate", err, ms, plain_ms,
-           bound_ms(blk * 9 + 2 * touched), lib_ms,
-           f"one block of {blk} directed edges, {touched} registers touched")
-    del fresh, flat_idx
+    del regs_p, rows, keys
+    report(*accumulate_timing(torch, np, edges, n_pad, "byte", regs_k, err))
 
     # estimate: the built panel
     out_k = hll_estimate.hll_estimate_stats(regs_k)
@@ -260,9 +243,7 @@ def compare_kernels(torch, np, edges, n, pairs, sets, report):
            bound_ms(n_pad * r + n_pad * 8), None, f"{n_pad} rows")
 
     # propagate: the whole directed routing, as the engine routes it
-    src = torch.from_numpy(np.ascontiguousarray(directed[:, 0])).to(dev)
-    dst = torch.from_numpy(np.ascontiguousarray(directed[:, 1])).to(dev)
-    del rows, keys, live
+    src, dst = routing_timing(torch, np, edges)
     prop_k = hll_propagate.hll_propagate(regs_k, src, dst)
     prop_p = hll_propagate.plain(regs_k, src, dst)
     torch.cuda.synchronize()
@@ -271,12 +252,12 @@ def compare_kernels(torch, np, edges, n, pairs, sets, report):
         fail(f"hll_propagate differs from its plain version (max {err})")
     del prop_p
     ms = cuda_ms(torch, lambda: hll_propagate.hll_propagate(regs_k, src, dst),
-                 3)
+                 5)
     plain_ms = cuda_ms(torch, lambda: hll_propagate.plain(regs_k, src, dst), 1)
     e_live = src.numel()
     report("hll_propagate", err, ms, plain_ms,
            bound_ms(2 * n_pad * r + 8 * e_live), None,
-           f"{e_live} directed edges")
+           f"{e_live} directed edges, dst-sorted routing")
     del src, dst
     compare_hip_delta(torch, np, regs_k, prop_k, report)
     del prop_k
@@ -343,6 +324,111 @@ def compare_kernels(torch, np, edges, n, pairs, sets, report):
     return regs_k.cpu()
 
 
+def accumulate_timing(torch, np, edges, n_pad, layout, built, err):
+    """hll_accumulate at the engine's launch shape: each ``INGEST_BLOCK``
+    chunk of undirected edges becomes 2 x ``INGEST_BLOCK`` directed edges
+    built on the card by ``directed_block``, in the engine's order. Times
+    one launch on a fresh panel (median over the first chunks), the plain
+    version on the same, PyTorch's ``scatter_reduce_`` on pre-hashed
+    indices (byte layout) and a build's launches in a row, whose panel
+    must equal ``built`` (the one-launch panel). Returns ``report``'s
+    arguments; ``err`` is the whole-graph comparison's."""
+    from repro_torch.core.hashing import bucket_rho
+    from repro_torch.engine.base import SketchEngine
+    from repro_torch.engine.local import directed_block
+    from repro_torch.kernels import hll_accumulate
+
+    dev = torch.device(DEVICE)
+    packed = layout == "packed"
+    name = "hll_accumulate_packed" if packed else "hll_accumulate"
+    w = (1 << P) // (2 if packed else 1)
+    blk = SketchEngine.INGEST_BLOCK
+    chunks = [directed_block(edges[s:s + blk], dev)
+              for s in range(0, len(edges), blk)]
+    n_dir = chunks[0][0].numel()
+    reps = min(5, len(chunks))
+    panel = torch.zeros((n_pad, w), dtype=torch.uint8, device=dev)
+    it = iter(chunks[:reps] * 2)
+
+    def fresh():
+        panel.zero_()
+        return next(it)
+
+    ms = cuda_ms(torch, lambda ro, ke: hll_accumulate.hll_accumulate(
+        panel, ro, ke, p=P, layout=layout), reps, fresh)
+    plain_ms = cuda_ms(torch, lambda ro, ke: hll_accumulate.plain(
+        panel, ro, ke, p=P, layout=layout), reps, fresh)
+    panel.zero_()
+    build_ms = cuda_ms(torch, lambda: [hll_accumulate.hll_accumulate(
+        panel, ro, ke, p=P, layout=layout) for ro, ke in chunks], 1)
+    if not torch.equal(panel, built):
+        fail(f"{name}: the build's {len(chunks)} chunk launches differ from "
+             f"the one-launch panel")
+    rows0, keys0 = chunks[0]
+    bkt = bucket_rho(keys0, P)[0]
+    if packed:  # bytes touched
+        idx = rows0.to(torch.int64) * w + bkt % w
+    else:
+        idx = rows0.to(torch.int64) * w + bkt
+    touched = torch.unique(idx).numel()
+    lib_ms = None
+    if not packed:
+        hashed = [(ro, *bucket_rho(ke, P)) for ro, ke in chunks[:reps]]
+        it_lib = iter([(ro.to(torch.int64) * w + b, rho)
+                       for ro, b, rho in hashed])
+
+        def fresh_lib():
+            panel.zero_()
+            return next(it_lib)
+
+        lib_ms = cuda_ms(torch, lambda i, v: panel.view(-1).scatter_reduce_(
+            0, i, v, reduce="amax"), reps, fresh_lib)
+    log(f"accumulate: {name}: one launch of {n_dir} directed edges "
+        f"{ms:.4f} ms = {ms * 1e6 / n_dir:.3f} ns per directed edge; a "
+        f"build's {len(chunks)} launches {build_ms:.3f} ms")
+    return (name, err, ms, plain_ms, bound_ms(8 * n_dir + 2 * touched),
+            lib_ms, f"one launch of {n_dir} directed edges (2 x "
+                    f"INGEST_BLOCK, engine order, fresh panel), "
+                    f"{ms * 1e6 / n_dir:.3f} ns/edge, {touched} registers "
+                    f"touched; the build's {len(chunks)} launches "
+                    f"{build_ms:.3f} ms, equal to the one-launch panel")
+
+
+def routing_timing(torch, np, edges):
+    """The engine's propagate routing (``directed_routing``: the edge list
+    copied to the card once, both orientations and the stable dst sort
+    built there slice by slice), timed three times on the host clock, one
+    ``sort_routing`` of the whole routing with CUDA events, and the device
+    memory the build takes at its peak and keeps. Prints one line;
+    returns the routing."""
+    from repro_torch.engine.local import directed_routing
+    from repro_torch.kernels.hll_propagate import sort_routing
+
+    dev = torch.device(DEVICE)
+    secs = []
+    routing = None
+    for _ in range(3):
+        routing = None
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        routing, t = timed(torch, lambda: directed_routing(edges, dev))
+        secs.append(t)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    kept = (torch.cuda.memory_allocated() - base) / 2 ** 30
+    e = torch.from_numpy(edges).to(dev)
+    src, dst = torch.cat([e[:, 0], e[:, 1]]), torch.cat([e[:, 1], e[:, 0]])
+    del e
+    sort_ms = cuda_ms(torch, lambda: sort_routing(src, dst), 3)
+    del src, dst
+    log(f"routing: directed_routing of {len(edges)} undirected edges "
+        f"({2 * len(edges)} directed): {statistics.median(secs):.4f} s "
+        f"median of {[round(t, 4) for t in secs]} (host clock); one stable "
+        f"dst sort of the whole routing {sort_ms:.3f} ms (CUDA events); device memory "
+        f"+{peak:.2f} GiB at its peak, {kept:.2f} GiB kept")
+    return routing
+
+
 def compare_hip_delta(torch, np, prev, cur, report):
     """hip_delta_rows against its plain version: D^1 -> D^2 of the main
     panel, then ragged row counts with registers up to max_register and
@@ -380,7 +466,6 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, panel, report):
     packed, 512 MiB), every output equal bit for bit, and equal to the
     byte kernel on the unpacked (clamped) panel. ``panel`` is the byte
     panel on the host; returns its packed image, on the host."""
-    from repro_torch.core.hashing import bucket_rho
     from repro_torch.engine import plans
     from repro_torch.kernels import ertl_stats, hll_accumulate, hll_estimate
     from repro_torch.kernels import hll_propagate, intersection_stats
@@ -400,15 +485,13 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, panel, report):
     directed = np.concatenate([edges, edges[:, ::-1]])
     rows = torch.from_numpy(np.ascontiguousarray(directed[:, 0])).to(dev)
     keys = torch.from_numpy(directed[:, 1].astype(np.uint32)).to(dev)
-    live = torch.ones(rows.shape, dtype=torch.bool, device=dev)
 
     # accumulate: the whole graph through the kernel and the plain version
     regs_k = torch.zeros((n_pad, w), dtype=torch.uint8, device=dev)
     regs_p = torch.zeros_like(regs_k)
-    hll_accumulate.hll_accumulate(regs_k, rows, keys, live, p=P, seed=0,
+    hll_accumulate.hll_accumulate(regs_k, rows, keys, p=P, seed=0,
                                   layout="packed")
-    hll_accumulate.plain(regs_p, rows, keys, live, p=P, seed=0,
-                         layout="packed")
+    hll_accumulate.plain(regs_p, rows, keys, p=P, seed=0, layout="packed")
     torch.cuda.synchronize()
     err = reg_err(regs_k, regs_p)
     if err != 0:
@@ -416,32 +499,9 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, panel, report):
              f"(max {err})")
     if not torch.equal(regs_k, want):
         fail("hll_accumulate_packed differs from pack_rows of the byte panel")
-    del regs_p
-    blk = min(2 * 32768, len(directed) // 4)
-    n_blk = min(16, len(directed) // blk)
-    blocks = [slice(i * blk, (i + 1) * blk) for i in range(n_blk)]
-    mask = torch.ones(blk, dtype=torch.bool, device=dev)
-    fresh = [torch.zeros((n_pad, w), dtype=torch.uint8, device=dev)
-             for _ in range(2)]
-    it = iter(blocks * 2)
-
-    def nxt(g):
-        sl = next(it)
-        return g, rows[sl], keys[sl]
-
-    ms = cuda_ms(torch, lambda g, ro, ke: hll_accumulate.hll_accumulate(
-        g, ro, ke, mask, p=P, layout="packed"), n_blk, lambda: nxt(fresh[0]))
-    plain_ms = cuda_ms(torch, lambda g, ro, ke: hll_accumulate.plain(
-        g, ro, ke, mask, p=P, layout="packed"), n_blk, lambda: nxt(fresh[1]))
-    bkt, _ = bucket_rho(keys[blocks[0]], P)
-    touched = torch.unique(rows[blocks[0]].to(torch.int64) * w
-                           + bkt % w).numel()
-    report("hll_accumulate_packed", err, ms, plain_ms,
-           bound_ms(blk * 9 + 2 * touched), None,
-           f"one block of {blk} directed edges, {touched} bytes touched; "
-           f"whole graph equal to pack_rows of the byte panel; library "
-           f"null: no PyTorch call merges into a nibble")
-    del fresh, rows, keys, live
+    del regs_p, rows, keys
+    report(*accumulate_timing(torch, np, edges, n_pad, "packed", regs_k,
+                              err))
 
     # estimate: the packed panel; the byte kernel on the clamped panel
     clamped = packing.unpack_rows(regs_k)
@@ -461,9 +521,9 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, panel, report):
            bound_ms(n_pad * w + n_pad * 8), None,
            f"{n_pad} rows; equal to the byte kernel on the clamped panel")
 
-    # propagate: the whole routing; pack_rows commutes with the pass
-    src = torch.from_numpy(np.ascontiguousarray(directed[:, 0])).to(dev)
-    dst = torch.from_numpy(np.ascontiguousarray(directed[:, 1])).to(dev)
+    # propagate: the engine's routing; pack_rows commutes with the pass
+    from repro_torch.engine.local import directed_routing
+    src, dst = directed_routing(edges, dev)
     prop_k = hll_propagate.hll_propagate(regs_k, src, dst, layout="packed")
     prop_p = hll_propagate.plain(regs_k, src, dst, layout="packed")
     torch.cuda.synchronize()
@@ -477,13 +537,14 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, panel, report):
         fail("pack_rows does not commute with the propagate pass")
     del prop_b, prop_k, byte
     ms = cuda_ms(torch, lambda: hll_propagate.hll_propagate(
-        regs_k, src, dst, layout="packed"), 3)
+        regs_k, src, dst, layout="packed"), 5)
     plain_ms = cuda_ms(torch, lambda: hll_propagate.plain(
         regs_k, src, dst, layout="packed"), 1)
     e_live = src.numel()
     report("hll_propagate_packed", err, ms, plain_ms,
            bound_ms(2 * n_pad * w + 8 * e_live), None,
-           f"{e_live} directed edges; pack_rows(byte pass) equal")
+           f"{e_live} directed edges, dst-sorted routing; pack_rows(byte "
+           f"pass) equal")
     del src, dst
 
     # intersection_stats: the main path's pairs
@@ -579,6 +640,8 @@ def main_path(torch, np, edges, n, pairs, verts, sets, panel):
 
     eng, secs = step("build", lambda: engine.build(
         edges, n, HLLConfig(p=P), device=DEVICE))
+    launch_check("main", "hll_accumulate", _build.launch_counts(), 0,
+                 -(-len(edges) // eng.INGEST_BLOCK), "build")
     log(f"main: build: {len(edges) / secs / 1e6:.2f} M undirected edges/s "
         f"({2 * len(edges) / secs / 1e6:.2f} M directed inserts/s)")
     if eng.device.type != DEVICE or not torch.equal(eng.regs.cpu(), panel):
@@ -597,8 +660,11 @@ def main_path(torch, np, edges, n, pairs, verts, sets, panel):
     if mre(deg) >= 3 * rel_std(P):
         fail(f"degree error {mre(deg):.4f} >= 3 x 1.04/sqrt(r)")
 
+    before = _build.launch_counts()
     (loc, glob), _ = step("neighborhood", lambda: eng.neighborhood(T_MAX),
                           lambda o: f", global sizes {o[1].tolist()}")
+    launch_check("main", "hll_propagate", _build.launch_counts(), before,
+                 T_MAX - 1, f"neighborhood({T_MAX})")
     if loc.shape != (T_MAX, n) or not np.isfinite(loc).all():
         fail("neighborhood sizes are not finite or have the wrong shape")
     if not np.array_equal(loc[0], deg) or not np.all(np.diff(glob) > 0):
@@ -641,6 +707,16 @@ def main_path(torch, np, edges, n, pairs, verts, sets, panel):
     return counts, deg
 
 
+def launch_check(label, kernel, counts, before, want, what):
+    """Fail unless ``kernel`` launched ``want`` times in ``what``:
+    ``counts`` now, ``before`` the counts at its start (0: all zero)."""
+    got = counts[kernel] - (before[kernel] if before else 0)
+    log(f"{label}: launches: {what} launched {kernel} {got} times "
+        f"(expected {want})")
+    if got != want:
+        fail(f"{label}: {what} launched {kernel} {got} times, not {want}")
+
+
 def packed_path(torch, np, edges, n, pairs, verts, sets, panel, packed_panel,
                 byte_deg):
     """Phase 5b: the main path on the packed layout, launch counters zeroed
@@ -664,8 +740,13 @@ def packed_path(torch, np, edges, n, pairs, verts, sets, panel, packed_panel,
 
     eng = step("build", lambda: engine.build(
         edges, n, HLLConfig(p=P), layout="packed", device=DEVICE))
+    launch_check("packed", "hll_accumulate_packed", _build.launch_counts(),
+                 0, -(-len(edges) // eng.INGEST_BLOCK), "build")
     deg = step("degrees", eng.degrees)
+    before = _build.launch_counts()
     loc, glob = step("neighborhood", lambda: eng.neighborhood(T_MAX))
+    launch_check("packed", "hll_propagate_packed", _build.launch_counts(),
+                 before, T_MAX - 1, f"neighborhood({T_MAX})")
     est = step("intersection_size",
                lambda: eng.intersection_size(pairs, method="mle"))
     uni = step("union_size", lambda: eng.union_size(sets))

@@ -10,12 +10,19 @@ the one ``chip_smoke.py`` drives, RMAT scale 22, edge factor 16, seed 0
 (``repro_torch.graph.generators.rmat``), cached at ``EDGES_NPY`` by the
 first run so that every checkout reads the same edges. The steps are the
 smoke's main path with ``HLLConfig(p=8)``: ``engine.build``, ``degrees``,
-``neighborhood(3)`` (the panel cache emptied before each run),
+``neighborhood(3)`` (the panel cache and the propagate routing dropped
+before each run, as a new engine version drops them),
 ``intersection_size`` on 16,384 edge pairs with the MLE, ``union_size`` on
-4,096 random sets of 1-63 ids, and ``query_batch`` over the three. Each
-runs ``REPS`` times on the host clock, ending in a device synchronize;
-the first run is reported apart from the median of the others, because a
-first call pays one-time costs (library loading, allocator growth).
+4,096 random sets of 1-63 ids, and ``query_batch`` over the three; then
+the smoke's ADS and merge phases with ``ADSConfig(p=8)``: ``engine.build``
+with ``family="ads"``, ``distance_histogram(6)`` (caches dropped before
+each run), the two half builds of the even- and odd-indexed edges, and
+their ``merge``. Each runs ``REPS`` times on the host clock, ending in a
+device synchronize; the first run is reported apart from the median of
+the others, because a first call pays one-time costs (library loading,
+allocator growth). Each step also reports its peak device memory
+(``max_memory_allocated``, reset before every run; the maximum over its
+runs).
 
 Prints the card's name and power limit, then one JSON line. Exits
 non-zero without a CUDA device.
@@ -42,6 +49,7 @@ def main(edges_path: str) -> int:
         print("time_main_path: no CUDA device available", file=sys.stderr)
         return 2
     from repro_torch import engine
+    from repro_torch.core.ads import ADSConfig
     from repro_torch.core.hll import HLLConfig
     from repro_torch.graph import generators
 
@@ -54,12 +62,17 @@ def main(edges_path: str) -> int:
     sets = [rng.integers(0, n, rng.integers(1, 64)) for _ in range(N_SETS)]
     cfg = HLLConfig(p=P)
     times: dict[str, list[float]] = {}
+    peaks: dict[str, float] = {}
 
     def timed(name, fn):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         times.setdefault(name, []).append(time.perf_counter() - t0)
+        peaks[name] = max(peaks.get(name, 0.0),
+                          torch.cuda.max_memory_allocated() / 2 ** 30)
         return out
 
     eng = None
@@ -80,6 +93,22 @@ def main(edges_path: str) -> int:
     for _ in range(REPS):
         timed("query_batch", lambda: eng.query_batch(
             degrees=True, vertex_sets=sets, pairs=pairs, method="mle"))
+    eng = None
+    ads_cfg = ADSConfig(p=P)
+    for _ in range(REPS):
+        eng = None
+        eng = timed("ads_build", lambda: engine.build(
+            edges, n, ads_cfg, family="ads", device="cuda"))
+    for _ in range(REPS):
+        eng._invalidate_caches()
+        timed("distance_histogram", lambda: eng.distance_histogram(6))
+    eng = None
+    for _ in range(REPS):
+        halves = None
+        halves = timed("merge_half_builds", lambda: [engine.build(
+            edges[i::2], n, ads_cfg, family="ads", device="cuda")
+            for i in (0, 1)])
+        timed("merge", lambda: halves[0].merge(halves[1]))
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -87,7 +116,8 @@ def main(edges_path: str) -> int:
     print(card)
     print(json.dumps({"tree": os.getcwd(), "card": card, "steps": {
         name: {"first": v[0], "median_rest": statistics.median(v[1:]),
-               "all": v} for name, v in times.items()}}))
+               "all": v, "peak_gib": peaks[name]}
+        for name, v in times.items()}}))
     return 0
 
 

@@ -134,8 +134,12 @@ class SketchEngine(abc.ABC):
 
     backend = "abstract"
 
-    #: edges per internal accumulate step; ``ingest`` splits larger blocks
-    INGEST_BLOCK = 1 << 15
+    #: undirected edges per accumulate launch; ``ingest`` splits larger
+    #: blocks. The JAX package's 2^15 serves XLA's static shape buckets;
+    #: the CUDA kernel takes any length, so a chunk here is as large as
+    #: host and device memory allow cheaply (32 MB of host ids, 64 MB of
+    #: directed ids on the device) and a 64M-edge build takes 16 launches
+    INGEST_BLOCK = 1 << 22
 
     #: at most this many D^t panels are kept (~n_pad * r bytes each);
     #: deeper horizons are computed transiently
@@ -224,8 +228,8 @@ class SketchEngine(abc.ABC):
         ``edge_block`` is int[k, 2]; both orientations of every edge are
         inserted. Ids must lie in [0, n) — checked before the int32 cast
         and before any mutation (``ValueError``). Blocks larger than
-        ``INGEST_BLOCK`` are split; each directed sub-block is padded to a
-        power-of-two size with a validity mask. Register max is
+        ``INGEST_BLOCK`` are split into chunks, each inserted in both
+        orientations at once, with no padding. Register max is
         commutative and idempotent, so any blocking of the same edges
         gives a byte-identical panel. Bumps :attr:`version`. Returns self.
         """

@@ -1,23 +1,87 @@
 """LocalEngine: the single-device backend (port of ``repro.engine.local``).
 
 The register panel lives on one device, the card unless the caller asks
-for the CPU. Ingest pushes each directed edge block through the
-accumulate kernel, updating the panel in place; a neighborhood pass runs
-the propagate kernel over the whole directed edge routing, which is built
-once per engine version and kept on the device. Triangle heavy hitters
-run the family's per-edge MLE over the ingested edge list.
+for the CPU. Ingest copies each undirected edge chunk to the device once,
+builds both orientations there and folds them into the panel in place
+with one accumulate launch; a neighborhood pass runs the propagate kernel
+over the whole directed edge routing, which is built on the device once
+per engine version, sorted by destination (the order the card's kernel
+pulls in), and kept there. Triangle heavy hitters run the family's
+per-edge MLE over the ingested edge list.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.engine import plans
 from repro_torch.engine.base import SketchEngine, pad_vertices, resolve_device
-from repro_torch.graph import stream as gstream
 from repro_torch.kernels import packing, registry
+from repro_torch.kernels.hll_propagate import sort_routing
 
-__all__ = ["LocalEngine"]
+__all__ = ["LocalEngine", "directed_block", "directed_routing"]
+
+
+def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Host array ``a`` on ``device``, copied first when it is read-only
+    (a tensor may not alias read-only memory)."""
+    return torch.from_numpy(a if a.flags.writeable else a.copy()).to(device)
+
+
+def _orientations(e: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both orientations of the edge list ``e`` int32[k, 2]: (the first
+    column then the second, the second column then the first)."""
+    return torch.cat([e[:, 0], e[:, 1]]), torch.cat([e[:, 1], e[:, 0]])
+
+
+def directed_block(chunk: np.ndarray, device: torch.device,
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both orientations of the undirected ``chunk`` int32[k, 2] as
+    accumulate inputs on ``device``: rows int32[2k] (the first column,
+    then the second) and keys uint32[2k] (the other endpoint,
+    reinterpreted). The chunk crosses to the device once."""
+    rows, keys = _orientations(_to_device(chunk, device))
+    return rows, keys.view(torch.uint32)
+
+
+#: directed edges per slice of the routing build: the sort's temporaries
+#: are those of one slice, not of the whole routing
+ROUTING_SLICE = 1 << 23
+
+
+def directed_routing(edges: np.ndarray, device: torch.device,
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Both orientations of the undirected ``edges`` int32[m, 2] as a
+    propagate routing ``(src, dst)`` int32[2m] on ``device``, stably
+    sorted by ``dst``: equal to ``sort_routing`` of ``(first column then
+    second, second then first)``. The edge list crosses to the device
+    once. The routing is built there in slices of consecutive
+    destinations, each about ``ROUTING_SLICE`` directed edges (a vertex's
+    in-edges never split), so the device holds the edge list, the result
+    and one slice's temporaries at a time."""
+    e = _to_device(edges, device)
+    n_dir = 2 * e.shape[0]
+    src = torch.empty(n_dir, dtype=torch.int32, device=device)
+    dst = torch.empty_like(src)
+    if n_dir == 0:
+        return src, dst
+    # cum[v]: directed edges whose dst is <= v (in-degree = degree)
+    cum = torch.bincount(e.reshape(-1)).cumsum(0)
+    n_slices = -(-n_dir // ROUTING_SLICE)
+    cuts = torch.searchsorted(
+        cum, torch.arange(1, n_slices, device=device) * ROUTING_SLICE)
+    bounds = [0, *(cuts + 1).tolist(), cum.numel()]
+    at = 0
+    for lo, hi in zip(bounds, bounds[1:]):
+        if lo >= hi:
+            continue
+        part = e[((e >= lo) & (e < hi)).any(1)]
+        s, d = _orientations(part)
+        keep = (d >= lo) & (d < hi)
+        s, d = sort_routing(s[keep], d[keep])
+        src[at:at + d.numel()] = s
+        dst[at:at + d.numel()] = d
+        at += d.numel()
+    return src, dst
 
 
 def _family_table(n_pad: int, cfg, layout: str,
@@ -86,29 +150,17 @@ class LocalEngine(SketchEngine):
 
     # ------------------------------------------------------ backend hooks
     def _accumulate_block(self, chunk: np.ndarray) -> None:
-        """Insert both orientations of an edge block (scatter-max).
-
-        Directed pairs are padded up to a power-of-two size with a
-        validity mask and folded into the panel in place.
-        """
-        directed = np.concatenate([chunk, chunk[:, ::-1]], axis=0)
-        cap = 2 * self.INGEST_BLOCK
-        dev = self.device
-        for s in range(0, len(directed), cap):
-            sub = directed[s:s + cap]
-            padded, mask = gstream.pad_block(sub, plans.bucket(len(sub)))
-            rows = torch.from_numpy(np.ascontiguousarray(padded[:, 0]))
-            keys = torch.from_numpy(padded[:, 1].astype(np.uint32))
-            self.kernels.accumulate(self._regs, rows.to(dev), keys.to(dev),
-                                    self.cfg, mask=torch.from_numpy(mask).to(dev))
+        """Insert both orientations of an edge chunk (scatter-max): the
+        directed rows and keys are built on the device
+        (:func:`directed_block`) and folded into the panel in place by one
+        launch, every edge live: no padding, no mask."""
+        rows, keys = directed_block(chunk, self.device)
+        self.kernels.accumulate(self._regs, rows, keys, self.cfg)
 
     def _propagate(self, regs: torch.Tensor) -> torch.Tensor:
         if self._prop_routing is None:
-            e = self._require_edges("neighborhood")
-            routing = (np.concatenate([e[:, 0], e[:, 1]]),
-                       np.concatenate([e[:, 1], e[:, 0]]))
-            self._prop_routing = tuple(torch.from_numpy(x).to(self.device)
-                                       for x in routing)
+            self._prop_routing = directed_routing(
+                self._require_edges("neighborhood"), self.device)
         src, dst = self._prop_routing
         return self.kernels.propagate(regs, src, dst)
 

@@ -1,9 +1,10 @@
 """Edge-block padding for the ingest path (copy of ``repro.graph.stream``).
 
-Only ``pad_block`` is ported so far: the engine pads each directed edge
-block to a power-of-two size and hands the validity mask to the
-accumulate kernel. ``EdgeStream`` and the owner router come with the
-streaming and sharded slices.
+Only ``pad_block`` is ported so far, the JAX package's padding of an
+edge block to a power-of-two shape with a validity mask; the port's local
+engine does not pad (the CUDA accumulate kernel takes any length).
+``EdgeStream`` and the owner router come with the streaming and sharded
+slices.
 """
 from __future__ import annotations
 

@@ -26,7 +26,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["KERNELS", "NVCC_FLAGS", "build", "library", "launch",
+__all__ = ["KERNELS", "NVCC_FLAGS", "build", "compile_library", "library",
+           "launch",
            "launch_counts", "reset_launch_counts", "check_device", "check_panel",
            "check_ids", "kernel_name", "stream_of"]
 
@@ -87,19 +88,14 @@ def _digest(files: list[Path]) -> str:
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile ``csrc/*.cu`` into the shared library (once per source hash).
-
-    Returns the library's path. ``nvcc``'s ``-Xptxas -v`` report (registers,
-    shared memory, spills per kernel) is kept beside it as ``.log``.
-    """
-    sources = sorted(_CSRC.glob("*.cu"))
-    lib = _BUILD_DIR / f"libreprotorch_{_digest(sorted(_CSRC.glob('*.cu*')))}.so"
-    if lib.exists():
-        return lib
+def compile_library(sources: list[Path], lib: Path) -> str:
+    """Compile ``sources`` (one ``nvcc`` each, all started together) and
+    link them into the shared library ``lib``, replaced atomically (a
+    concurrent build sees all or none). Returns ``nvcc``'s report; raises
+    on a failed compile or link."""
     nvcc = _nvcc()
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = Path(tempfile.mkdtemp(dir=_BUILD_DIR))
+    lib.parent.mkdir(parents=True, exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(dir=lib.parent))
     try:
         objs = [tmp / (src.stem + ".o") for src in sources]
         procs = [subprocess.Popen(
@@ -118,10 +114,22 @@ def build() -> Path:
             capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stdout}{link.stderr}")
-        lib.with_suffix(".log").write_text("".join(logs))
-        os.replace(out, lib)  # atomic: a concurrent build sees all or none
+        os.replace(out, lib)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+    return "".join(logs)
+
+
+def build() -> Path:
+    """Compile ``csrc/*.cu`` into the shared library (once per source hash).
+
+    Returns the library's path. ``nvcc``'s ``-Xptxas -v`` report (registers,
+    shared memory, spills per kernel) is kept beside it as ``.log``.
+    """
+    lib = _BUILD_DIR / f"libreprotorch_{_digest(sorted(_CSRC.glob('*.cu*')))}.so"
+    if not lib.exists():
+        log = compile_library(sorted(_CSRC.glob("*.cu")), lib)
+        lib.with_suffix(".log").write_text(log)
     return lib
 
 

@@ -8,8 +8,12 @@ frozen input, never ``out``. Padding slots route ``(0, 0)``, a self-merge
 no-op. On the packed layout (``uint8[V, r/2]``, launcher
 ``hll_propagate_packed``) the max is taken nibble by nibble.
 
-On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
-:func:`plain`, the plain PyTorch version.
+The kernel is a pull over a routing sorted by ``dst``: on a CUDA tensor
+the wrapper requires ``dst`` to be non-decreasing (one pass over it) and
+raises ``ValueError`` otherwise; :func:`sort_routing` puts any routing in
+that order, and the engine builds its routing with it once per version.
+On a CPU tensor the wrapper runs :func:`plain`, the plain PyTorch
+version, which takes the edges in any order.
 """
 from __future__ import annotations
 
@@ -17,7 +21,17 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["hll_propagate", "plain"]
+__all__ = ["hll_propagate", "plain", "sort_routing"]
+
+
+def sort_routing(src: torch.Tensor, dst: torch.Tensor,
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The routing ``(src, dst)`` stably sorted by ``dst``, on the
+    tensors' device: the order the card's kernel reads. Edges with equal
+    ``dst`` keep their input order. The answer of a pass does not depend
+    on the order (register max is commutative and idempotent)."""
+    dst_sorted, order = torch.sort(dst, stable=True)
+    return src[order], dst_sorted
 
 
 def plain(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, *,
@@ -30,13 +44,21 @@ def plain(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, *,
 def hll_propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                   *, layout: str = "byte") -> torch.Tensor:
     """regs: uint8[V, r] (packed: uint8[V, r/2]); src/dst: int32[E] in
-    [0, V) -> a new panel of the same shape."""
+    [0, V), ``dst`` non-decreasing on the card -> a new panel of the same
+    shape."""
     on_card = _build.check_device(regs, "regs")
     v, r = _build.check_panel(regs, layout)
     _build.check_ids(src, "src", regs)
     _build.check_ids(dst, "dst", regs, src.shape[0])
     if not on_card:
         return plain(regs, src, dst, layout=layout)
+    if regs.data_ptr() % 16:
+        raise ValueError("regs must be 16-byte aligned on the card: the "
+                         "propagate kernel reads rows in 16-byte words")
+    if dst.shape[0] > 1 and bool((dst[1:] < dst[:-1]).any()):
+        raise ValueError("dst must be non-decreasing on the card: the "
+                         "propagate kernel pulls over a dst-sorted routing "
+                         "(sort it with sort_routing)")
     out = regs.clone()
     _build.launch(_build.kernel_name("hll_propagate", layout), regs.device,
                   regs.data_ptr(), out.data_ptr(), src.data_ptr(),

@@ -24,7 +24,8 @@ JAX package's plain versions unpack or merge nibble planes
 
 The CUDA kernels need no block padding (each masks its own ragged edge),
 and their launch shapes are constants in ``csrc/``; the autotune table of
-the JAX package is not ported yet.
+the JAX package is not ported yet. On the card, propagate needs its
+routing sorted by ``dst`` (``hll_propagate.sort_routing``).
 """
 from __future__ import annotations
 
@@ -48,9 +49,8 @@ __all__ = ["accumulate", "propagate", "estimate", "union_estimate",
 def accumulate(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
                cfg: HLLConfig, mask: torch.Tensor | None = None,
                layout: str = "byte") -> torch.Tensor:
-    """Insert keys[e] into sketch regs[rows[e]] in place (Algorithm 1)."""
-    if mask is None:
-        mask = torch.ones(rows.shape, dtype=torch.bool, device=rows.device)
+    """Insert keys[e] into sketch regs[rows[e]] in place (Algorithm 1);
+    ``mask=None`` inserts every edge (the kernel then reads no mask)."""
     return hll_accumulate(regs, rows, keys, mask, p=cfg.p, seed=cfg.seed,
                           layout=layout)
 

@@ -70,6 +70,58 @@ def test_accumulate_matches_plain(dev, p, seed):
     assert torch.equal(got, want)
 
 
+def _sorted_inserts(rng, v, e):
+    """Row-sorted rows (a few rows, long runs) and random keys."""
+    rows = np.sort(rng.integers(0, v, e)).astype(np.int32)
+    keys = rng.integers(0, 2 ** 32, e, dtype=np.uint64).astype(np.uint32)
+    return rows, keys
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+@pytest.mark.parametrize("p", [4, 8, 16])
+def test_accumulate_match_groups_match_plain(dev, layout, p):
+    """Row-sorted inserts into 3 rows: a warp's 32 lanes mostly share a
+    row, so many lanes update one word and the match groups are large;
+    the edge count is not a multiple of a tile."""
+    rng = np.random.default_rng(p + 31)
+    w = (1 << p) // (2 if layout == "packed" else 1)
+    regs = torch.zeros((3, w), dtype=torch.uint8, device=dev)
+    rows, keys = _sorted_inserts(rng, 3, 40_001)
+    rows_t, keys_t = (torch.from_numpy(x).to(dev) for x in (rows, keys))
+    want = hll_accumulate.plain(regs.clone(), rows_t, keys_t, p=p, seed=2,
+                                layout=layout)
+    got = _launched(_build.kernel_name("hll_accumulate", layout),
+                    lambda: hll_accumulate.hll_accumulate(
+                        regs, rows_t, keys_t, p=p, seed=2, layout=layout))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+@pytest.mark.parametrize("e", [1, 127, 129, 50_003])
+def test_accumulate_without_mask_matches_masks(dev, layout, e):
+    """mask=None equals an all-true mask; a mixed mask equals the plain
+    version; edge counts off the 128-edge tile and the 4-edge thread."""
+    rng = np.random.default_rng(e)
+    p, v = 8, 97
+    w = (1 << p) // (2 if layout == "packed" else 1)
+    rows, keys = _sorted_inserts(rng, v, e)
+    rows_t, keys_t = (torch.from_numpy(x).to(dev) for x in (rows, keys))
+    name = _build.kernel_name("hll_accumulate", layout)
+
+    def run(mask):
+        regs = torch.zeros((v, w), dtype=torch.uint8, device=dev)
+        return _launched(name, lambda: hll_accumulate.hll_accumulate(
+            regs, rows_t, keys_t, mask, p=p, layout=layout))
+
+    ones = torch.ones(e, dtype=torch.bool, device=dev)
+    assert torch.equal(run(None), run(ones))
+    mixed = torch.from_numpy(rng.random(e) < 0.5).to(dev)
+    want = hll_accumulate.plain(
+        torch.zeros((v, w), dtype=torch.uint8, device=dev), rows_t, keys_t,
+        mixed, p=p, layout=layout)
+    assert torch.equal(run(mixed), want)
+
+
 @pytest.mark.parametrize("p", [3, 4, 8, 12])
 @pytest.mark.parametrize("n", [1, 1001])
 def test_estimate_matches_plain(dev, p, n):
@@ -83,6 +135,13 @@ def test_estimate_matches_plain(dev, p, n):
     torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-6, atol=0)
 
 
+def _routing(src, dst, dev):
+    """A numpy routing on the card, sorted by dst as the kernel needs."""
+    return hll_propagate.sort_routing(
+        *(torch.from_numpy(np.asarray(x, np.int32)).to(dev)
+          for x in (src, dst)))
+
+
 @pytest.mark.parametrize("p", [3, 8, 12])
 def test_propagate_matches_plain(dev, p):
     rng = np.random.default_rng(p)
@@ -93,7 +152,7 @@ def test_propagate_matches_plain(dev, p):
     dst = rng.integers(0, v, e).astype(np.int32)
     dst[::7] = src[::7]  # self-loops
     src[1::9], dst[1::9] = 5, 9  # one heavily duplicated edge
-    src_t, dst_t = (torch.from_numpy(x).to(dev) for x in (src, dst))
+    src_t, dst_t = _routing(src, dst, dev)
     got = _launched("hll_propagate",
                     lambda: hll_propagate.hll_propagate(regs, src_t, dst_t))
     assert torch.equal(got, hll_propagate.plain(regs, src_t, dst_t))
@@ -103,10 +162,70 @@ def test_propagate_matches_plain(dev, p):
 def test_propagate_reads_the_frozen_panel(dev):
     regs = torch.zeros((4, 16), dtype=torch.uint8, device=dev)
     regs[2, 5] = 9
-    src = torch.tensor([2, 1], dtype=torch.int32, device=dev)
-    dst = torch.tensor([1, 0], dtype=torch.int32, device=dev)
+    # 2 -> 0, then 0 -> 1: the first hop sorts first, so a kernel that
+    # gathered from ``out`` would carry the 9 on to row 1.
+    src = torch.tensor([2, 0], dtype=torch.int32, device=dev)
+    dst = torch.tensor([0, 1], dtype=torch.int32, device=dev)
     one = hll_propagate.hll_propagate(regs, src, dst)
-    assert int(one[1, 5]) == 9 and int(one[0, 5]) == 0
+    assert int(one[0, 5]) == 9 and int(one[1, 5]) == 0
+
+
+# Routings shaped against the pull's edge runs (512-2048 edges each): a
+# hub's in-edges spread over many runs, segments longer than any run so
+# every one crosses a run boundary, and a stretch of self-edges longer
+# than a run. Panels at p = 4-16, both layouts, equal to the plain version
+# bit for bit.
+
+def _run_routings(rng, v):
+    """{name: (src, dst)} numpy routings over v rows (unsorted)."""
+    other = rng.integers(0, v, (1_000, 2))
+    other[:, 1] = rng.integers(5, v, 1_000)  # no other edge enters 3 or 4
+    star_src = rng.integers(0, v, 6_000)
+    lens = rng.integers(2_049, 2_500, 3)  # every segment > any run
+    long_dst = np.repeat(rng.choice(v, 3, replace=False), lens)
+    selfs = np.repeat([3, 4], 1_100)  # sorts first: routing[:2200]
+    return {
+        "star": (np.concatenate([star_src, other[:, 0]]),
+                 np.concatenate([np.full(6_000, 7), other[:, 1]])),
+        "straddling": (rng.integers(0, v, lens.sum()), long_dst),
+        "self_edges": (np.concatenate([selfs, other[:, 0]]),
+                       np.concatenate([selfs, other[:, 1]])),
+    }
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+@pytest.mark.parametrize("p", [4, 8, 12, 16])
+@pytest.mark.parametrize("case", ["star", "straddling", "self_edges"])
+def test_propagate_edge_runs_match_plain(dev, layout, p, case):
+    rng = np.random.default_rng(p * 7 + len(case))
+    v = 300
+    if layout == "packed":
+        regs = _packed_panel(rng, v, p, dev)
+    else:
+        regs = _panel(rng, v, p, 40, dev)
+    regs[rng.random(v) < 0.2] = 0
+    src_t, dst_t = _routing(*_run_routings(rng, v)[case], dev)
+    if case == "self_edges":  # the first run holds only self-edges
+        assert torch.equal(src_t[:2_048], dst_t[:2_048])
+    name = _build.kernel_name("hll_propagate", layout)
+    got = _launched(name, lambda: hll_propagate.hll_propagate(
+        regs, src_t, dst_t, layout=layout))
+    assert torch.equal(got, hll_propagate.plain(regs, src_t, dst_t,
+                                                layout=layout))
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+def test_propagate_rejects_unsorted_dst(dev, layout):
+    regs = torch.zeros((8, 16), dtype=torch.uint8, device=dev)
+    src = torch.tensor([1, 2, 3], dtype=torch.int32, device=dev)
+    dst = torch.tensor([0, 4, 2], dtype=torch.int32, device=dev)
+    before = _build.launch_counts()
+    with pytest.raises(ValueError, match="non-decreasing"):
+        hll_propagate.hll_propagate(regs, src, dst, layout=layout)
+    assert _build.launch_counts() == before
+    s, d = hll_propagate.sort_routing(src, dst)
+    assert d.tolist() == [0, 2, 4] and s.tolist() == [1, 3, 2]
+    hll_propagate.hll_propagate(regs, s, d, layout=layout)
 
 
 @pytest.mark.parametrize("p", [4, 8, 16])
@@ -273,6 +392,42 @@ def test_engine_queries_on_the_card_match_the_cpu(dev):
         np.testing.assert_allclose(vals, w_vals, rtol=0, atol=atol)
 
 
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+def test_ragged_ingest_on_the_card_matches_the_cpu(dev, monkeypatch, layout):
+    """Ragged ingest blocks, split into chunks of a small INGEST_BLOCK:
+    one accumulate launch per chunk, registers equal to the CPU engine's,
+    and neighborhoods over the card's dst-sorted routing equal too."""
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.engine.base import SketchEngine
+    from repro_torch.graph import generators
+    monkeypatch.setattr(SketchEngine, "INGEST_BLOCK", 1000)
+    edges = generators.rmat(10, 8, seed=9)
+    n = 1 << 10
+    cfg = HLLConfig(p=8)
+    cpu = engine.build(edges, n, cfg, layout=layout, device="cpu")
+    card = engine.open(n, cfg, layout=layout)
+    name = _build.kernel_name("hll_accumulate", layout)
+    before = _build.launch_counts()[name]
+    chunks, s = 0, 0
+    for size in (1, 999, 1000, 1001, 2500, 77):
+        block = edges[s:s + size]
+        card.ingest(block)
+        chunks += -(-len(block) // 1000)
+        s += size
+    card.ingest(edges[s:])
+    chunks += -(-(len(edges) - s) // 1000)
+    assert _build.launch_counts()[name] - before == chunks
+    assert torch.equal(card.regs.cpu(), cpu.regs)
+    prop = _build.kernel_name("hll_propagate", layout)
+    before = _build.launch_counts()[prop]
+    hops = card.neighborhood(3)[0]
+    assert _build.launch_counts()[prop] - before == 2
+    np.testing.assert_allclose(hops, cpu.neighborhood(3)[0], rtol=1e-5)
+    for a, b in zip(card._panel_set.panels, cpu._panel_set.panels):
+        assert torch.equal(a.cpu(), b)
+
+
 @pytest.mark.parametrize("estimator", ["flajolet", "beta"])
 def test_engine_on_the_card_matches_the_cpu(dev, estimator):
     """Both estimators read the estimate kernel's (s, z) on the card."""
@@ -352,7 +507,7 @@ def test_packed_propagate_matches_plain(dev, p):
     dst = rng.integers(0, v, e).astype(np.int32)
     dst[::7] = src[::7]
     src[1::9], dst[1::9] = 5, 9
-    src_t, dst_t = (torch.from_numpy(x).to(dev) for x in (src, dst))
+    src_t, dst_t = _routing(src, dst, dev)
     got = _launched("hll_propagate_packed",
                     lambda: hll_propagate.hll_propagate(
                         regs, src_t, dst_t, layout="packed"))
