@@ -17,8 +17,11 @@ Phases, one line each:
 4. kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main path's shapes, with its time, the plain version's,
    the bound (bytes this run's data needs over 3.35 TB/s) and, for
-   accumulate, the ``scatter_reduce_`` yardstick. Accumulate runs the
-   whole graph in one launch (every edge live, no mask) and is timed at
+   accumulate, the ``scatter_reduce_`` yardstick. The estimate is also
+   held on a sweep of p and ragged row counts in both layouts and timed
+   on its own line at the triangle phase's block of 2^18 gathered rows.
+   Accumulate runs the whole graph in one launch (every edge live, no
+   mask) and is timed at
    the engine's launch shape, 2 x ``INGEST_BLOCK`` directed edges built
    on the card in the engine's order, on a fresh panel (ns per directed
    edge printed), and as a build's launches in a row, which must give
@@ -229,7 +232,7 @@ def compare_kernels(torch, np, edges, n, pairs, sets, report):
     del regs_p, rows, keys
     report(*accumulate_timing(torch, np, edges, n_pad, "byte", regs_k, err))
 
-    # estimate: the built panel
+    # estimate: the built panel, then a sweep of p and ragged row counts
     out_k = hll_estimate.hll_estimate_stats(regs_k)
     out_p = hll_estimate.plain(regs_k)
     torch.cuda.synchronize()
@@ -237,10 +240,12 @@ def compare_kernels(torch, np, edges, n, pairs, sets, report):
             out_k[:, 0], out_p[:, 0], rtol=1e-6, atol=0):
         fail("hll_estimate_stats differs from its plain version")
     err = float((out_k - out_p).abs().max())
+    compare_estimate_sweep(torch, np)
     ms = cuda_ms(torch, lambda: hll_estimate.hll_estimate_stats(regs_k), 10)
     plain_ms = cuda_ms(torch, lambda: hll_estimate.plain(regs_k), 3)
     report("hll_estimate_stats", err, ms, plain_ms,
-           bound_ms(n_pad * r + n_pad * 8), None, f"{n_pad} rows")
+           bound_ms(n_pad * r + n_pad * 8), None,
+           f"{n_pad} rows; sweep of p 3-16 and ragged row counts equal")
 
     # propagate: the whole directed routing, as the engine routes it
     src, dst = routing_timing(torch, np, edges)
@@ -321,7 +326,60 @@ def compare_kernels(torch, np, edges, n, pairs, sets, report):
     report("ertl_stats", err, ms, plain_ms,
            bound_ms(ERTL_PAIRS * (2 * r + 4 * 5 * (q + 2))), None,
            f"{ERTL_PAIRS} gathered edge pairs")
+
+    # estimate at the triangle phase's shape: one block of gathered rows
+    out_k = hll_estimate.hll_estimate_stats(a)
+    out_p = hll_estimate.plain(a)
+    torch.cuda.synchronize()
+    if not torch.equal(out_k[:, 1], out_p[:, 1]) or not torch.allclose(
+            out_k[:, 0], out_p[:, 0], rtol=1e-6, atol=0):
+        fail("hll_estimate_stats differs from its plain version on the "
+             "triangle block")
+    ms = cuda_ms(torch, lambda: hll_estimate.hll_estimate_stats(a), 20)
+    plain_ms = cuda_ms(torch, lambda: hll_estimate.plain(a), 3)
+    log(f"kernel vs plain: hll_estimate_stats at the triangle block: max abs "
+        f"err {float((out_k - out_p).abs().max())}, kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound "
+        f"{bound_ms(ERTL_PAIRS * (r + 8)):.4f} ms (bytes); {ERTL_PAIRS} "
+        f"gathered rows")
     return regs_k.cpu()
+
+
+def compare_estimate_sweep(torch, np):
+    """hll_estimate_stats in both layouts against the plain versions at
+    p 3-16 (packed 4-16) and row counts that leave the kernel's row groups
+    ragged, with all-zero rows and byte registers up to 255 (the slow
+    path): byte ``z`` exact and ``s`` within ``rtol=1e-6``; packed bit for
+    bit, and equal to the byte kernel on the unpacked panel (both take
+    the exact sum and round it once)."""
+    from repro_torch.kernels import hll_estimate, packing
+    rng = np.random.default_rng(SEED + 4)
+    for p, m in ((3, 33), (4, 1), (6, 5), (8, 7), (8, 9), (8, 1001),
+                 (9, 77), (10, 3), (12, 515), (14, 17), (16, 7)):
+        full = rng.integers(0, 22, (m, 1 << p)).astype(np.uint8)
+        full[::3] = 0
+        byte = torch.from_numpy(full).to(DEVICE)
+        wild = byte.clone()
+        wild[1::3, ::5] = torch.from_numpy(rng.integers(
+            100, 256, wild[1::3, ::5].shape).astype(np.uint8)).to(DEVICE)
+        for panel in (byte, wild):
+            got = hll_estimate.hll_estimate_stats(panel)
+            want = hll_estimate.plain(panel)
+            if not torch.equal(got[:, 1], want[:, 1]) or not torch.allclose(
+                    got[:, 0], want[:, 0], rtol=1e-6, atol=0):
+                fail(f"hll_estimate_stats differs from its plain version at "
+                     f"p={p}, {m} rows")
+        if p < 4:
+            continue
+        packed = packing.pack_rows(byte)
+        got = hll_estimate.hll_estimate_stats(packed, layout="packed")
+        if not torch.equal(got, hll_estimate.plain(packed, layout="packed")):
+            fail(f"hll_estimate_stats_packed differs from its plain version "
+                 f"at p={p}, {m} rows")
+        if not torch.equal(got, hll_estimate.hll_estimate_stats(
+                packing.unpack_rows(packed))):
+            fail(f"hll_estimate_stats_packed differs from the byte kernel "
+                 f"on the clamped panel at p={p}, {m} rows")
 
 
 def accumulate_timing(torch, np, edges, n_pad, layout, built, err):

@@ -1,7 +1,7 @@
 // Shared device helpers for the DegreeSketch kernels (sm_90a): the hash,
 // exact 2^-x, the per-word (s, z) terms of both register layouts, the
-// nibble max of the packed layout, the Eq. 19 histogram update, the row
-// clamp and warp sums.
+// nibble max of the packed layout, the Eq. 19 histogram update, vector
+// loads and row groups, the row clamp, warp sums and grid sizes.
 //
 // The hash is the one of repro/core/hashing.py, computed natively in
 // uint32_t: two murmur3 finalizers with distinct seed mixing, cross-mixed,
@@ -133,6 +133,33 @@ __device__ __forceinline__ void add_lane_stats(
   }
 }
 
+// A 16- or 8-byte vector load (uint4 or uint2) and its 32-bit words.
+template <int kBytes>
+struct Vec;
+template <>
+struct Vec<16> {
+  using T = uint4;
+  __device__ static __forceinline__ uint32_t word(const uint4& v, int i) {
+    return i == 0 ? v.x : (i == 1 ? v.y : (i == 2 ? v.z : v.w));
+  }
+};
+template <>
+struct Vec<8> {
+  using T = uint2;
+  __device__ static __forceinline__ uint32_t word(const uint2& v, int i) {
+    return i == 0 ? v.x : v.y;
+  }
+};
+
+// log2 of the lanes that share a row of `row_vecs` vectors when each lane
+// takes `loads` of them a step (a power of two): row_vecs / loads lanes,
+// clamped to [1, 32], so g * loads divides row_vecs whenever g > 1.
+inline int group_log2(int row_vecs, int loads) {
+  int g_log2 = 0;
+  while (g_log2 < 5 && (loads << (g_log2 + 1)) <= row_vecs) ++g_log2;
+  return g_log2;
+}
+
 // Row index clamped into [0, n_rows), as a jnp gather clamps: callers
 // validate ids, so this only keeps a stray id in bounds.
 __device__ __forceinline__ int64_t clamp_row(int64_t i, int64_t n_rows) {
@@ -167,6 +194,26 @@ __device__ __forceinline__ int warp_sum(int v) {
 inline unsigned int grid_for(int64_t work, int threads) {
   const int64_t blocks = (work + threads - 1) / threads;
   return static_cast<unsigned int>(blocks < (1 << 20) ? blocks : (1 << 20));
+}
+
+// Blocks of a persistent grid-stride loop of kKernel (launched with
+// `threads` threads a block) over `blocks` blocks of work: at most `per_sm`
+// on each SM of the current device, and no more than fit there at once,
+// so the grid is one wave and no block waits for a second.
+template <auto kKernel>
+unsigned int persistent_grid(int threads, int64_t blocks, int per_sm) {
+  static const int fit = [threads] {
+    int f = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&f, kKernel, threads, 0);
+    return f < 1 ? 1 : f;
+  }();
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int64_t cap =
+      static_cast<int64_t>(sms > 0 ? sms : 1) * (per_sm < fit ? per_sm : fit);
+  if (blocks < 1) return 1u;
+  return static_cast<unsigned int>(blocks < cap ? blocks : cap);
 }
 
 }  // namespace repro

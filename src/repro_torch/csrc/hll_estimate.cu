@@ -7,95 +7,221 @@
 // work.
 //
 // What bounds it on the H100: bytes. Every register byte is read once
-// (1 GiB for 4M vertices at p=8) and 8 bytes are written per row, with a
-// handful of integer operations per byte, far below the card's
-// operations-per-byte balance.
+// (1 GiB for 4M vertices at p=8) and 8 bytes are written per row. The
+// per-byte arithmetic has to stay a few instructions, or issue, not the
+// memory, sets the time.
 //
-// Design: one warp per row, grid-stride over rows. Lanes read the row
-// with 8-byte vector loads (p=8: the warp covers the 256-byte row in one
-// request), build 2^-x exactly from the exponent bits instead of calling
-// exp2f, and reduce s and z with warp shuffles. The wrapper guarantees
-// r >= 8 and an 8-byte-aligned panel.
+// Design: a group of g lanes per row, each lane issuing kLoads 16-byte
+// loads of its row before it reduces any (p=8: 4 lanes x 64 bytes, 8 rows
+// a warp), a persistent grid of at most kBlocksPerSM resident blocks per
+// SM striding over row groups, log2(g) shuffle levels per row and one
+// float2 store. Per 32-bit word:
+// * z counts the nonzero bytes with one carry-free add and a popcount;
+// * s is summed exactly in fixed point: when carry-free adds show every
+//   byte of a vector <= 27, each term 2^(27 - x) is one wrapping funnel shift
+//   of 2^27 by the word shifted to that byte, and the terms of a 16-byte
+//   vector add in 32 bits before one 64-bit add. A vector holding a
+//   larger byte (a few in a real panel; foreign bytes too) takes one
+//   rolled loop over its bytes instead, whose terms x > 27 add their
+//   float32 2^-x in float64.
+// The row's sum is rounded to float32 once, so s does not depend on the
+// order of summation; the plain version's float32 sum is within
+// rtol=1e-6 of it. A panel that is only 8-byte aligned, or rows of 8
+// bytes, take 8-byte loads instead. The wrapper guarantees rows of a
+// power of two >= 8 bytes and an 8-byte-aligned panel.
 //
-// Packed layout (hll_estimate_stats_packed): the row is r/2 bytes, read as
-// 4-byte words (p=8: 32 lanes cover the 128-byte row in one request),
-// each word split into its eight nibbles in registers. s is summed
-// exactly as the integer sum 2^(15 - x) and rounded to float once
-// (repro::Harmonic<true>), so the kernel equals the plain version bit for
-// bit, and equals the byte kernel on the unpacked panel wherever that one
-// is exact (every p <= 9). The bytes bound halves.
+// Packed layout (hll_estimate_stats_packed): the row is r/2 bytes, eight
+// 4-bit registers a word. The even and odd nibbles are split into byte
+// lanes, and each term 2^(15 - x) is one wrapping funnel shift of 0x8000
+// by the nibble (its byte lane holds no other bit below bit 5). s is the
+// exact integer sum, rounded to float once (repro::Harmonic<true>), so
+// the kernel equals the plain version bit for bit, and equals the byte
+// kernel on the unpacked panel (both are the exact sum rounded once).
+// The bytes bound halves.
 #include "common.cuh"
 
 namespace {
 
-__global__ void hll_estimate_kernel(const uint8_t* __restrict__ regs,
-                                    float* __restrict__ out, int64_t n_rows,
-                                    int r) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
-  for (int64_t row =
-           (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-       row < n_rows; row += warps) {
-    const uint8_t* base = regs + row * r;
-    float s = 0.f;
-    int z = 0;
-    const uint2* v = reinterpret_cast<const uint2*>(base);
-    for (int i = lane; i < (r >> 3); i += 32) {
-      const uint2 w = v[i];
-      repro::add_word_stats(w.x, &s, &z);
-      repro::add_word_stats(w.y, &s, &z);
+// Design constants, swept on the card by scripts/sweep_rowstats.py.
+constexpr int kVecBytes = 16;    // load width (8 where alignment forbids 16)
+constexpr int kLoads = 4;        // loads of its row a lane has in flight
+constexpr int kThreads = 512;
+constexpr int kBlocksPerSM = 8;  // persistent grid
+
+// Byte layout. Registers x <= 27 add 2^(27 - x) to an exact fixed-point
+// sum in units of 2^-27; larger (rare, or foreign) ones add their float32
+// term 2^-x to a float64 `tiny`.
+constexpr uint32_t kFixOne = 1u << 27;
+
+// Adds the terms of the kVec / 4 words of one vector to fix and tiny and
+// its nonzero bytes to nz.
+template <int kVec>
+__device__ __forceinline__ void byte_vec(
+    const typename repro::Vec<kVec>::T& v, unsigned long long* fix,
+    double* tiny, int* nz) {
+  using V = repro::Vec<kVec>;
+  constexpr int kWords = kVec / 4;
+  uint32_t large = 0u;  // bit 7 of a byte: some word's byte is >= 28
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) {
+    const uint32_t w = V::word(v, k);
+    const uint32_t low7 = w & 0x7F7F7F7Fu;
+    // bit 7 of a byte: the byte is nonzero (no add carries out of a byte)
+    *nz += __popc(((low7 + 0x7F7F7F7Fu) | w) & 0x80808080u);
+    large |= (low7 + 0x64646464u) | w;
+  }
+  if ((large & 0x80808080u) == 0u) {
+    // bits 5-7 of every byte are 0, so each wrapping shift's 5-bit amount
+    // is one byte; the vector's terms sum to at most 16 * 2^27 = 2^31
+    uint32_t part = 0u;
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      const uint32_t w = V::word(v, k);
+      part += __funnelshift_r(kFixOne, 0u, w) +
+              __funnelshift_r(kFixOne, 0u, w >> 8) +
+              __funnelshift_r(kFixOne, 0u, w >> 16) +
+              __funnelshift_r(kFixOne, 0u, w >> 24);
     }
-    s = repro::warp_sum(s);
-    z = repro::warp_sum(z);
-    if (lane == 0) {
-      out[2 * row] = s;
-      out[2 * row + 1] = static_cast<float>(z);
+    *fix += part;
+    return;
+  }
+  // a byte > 27 somewhere in the vector: one rolled loop, kept out of the
+  // unrolled fast path
+#pragma unroll 1
+  for (int b = 0; b < kVec; ++b) {
+    const uint32_t x = (V::word(v, b >> 2) >> (8 * (b & 3))) & 0xFFu;
+    if (x <= 27u) {
+      *fix += kFixOne >> x;
+    } else {
+      *tiny += static_cast<double>(repro::exp2_neg(x));
     }
   }
 }
 
-// width: bytes per packed row (r / 2), a power of two >= 8.
-__global__ void hll_estimate_packed_kernel(const uint8_t* __restrict__ regs,
-                                           float* __restrict__ out,
-                                           int64_t n_rows, int width) {
+// Packed layout: adds the eight 2^(15 - x) terms of w to `part`, exactly
+// (a vector's sum is at most 32 * 2^15), and its nonzero nibbles to nz.
+__device__ __forceinline__ void packed_word(uint32_t w, uint32_t* part,
+                                            int* nz) {
+  *nz += __popc((((w & 0x77777777u) + 0x77777777u) | w) & 0x88888888u);
+  const uint32_t even = w & 0x0F0F0F0Fu;
+  const uint32_t odd = (w >> 4) & 0x0F0F0F0Fu;
+  uint32_t t = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // the shift wraps at 32: bits 5-7 are 0
+    t += __funnelshift_r(0x8000u, 0u, even >> (8 * k)) +
+         __funnelshift_r(0x8000u, 0u, odd >> (8 * k));
+  }
+  *part += t;
+}
+
+// row_vecs: kVec-byte vectors per row; g = 1 << g_log2 lanes per row;
+// regs_per_row: registers per row (the zero count is regs_per_row - nz).
+template <bool kPacked, int kVec>
+__global__ void __launch_bounds__(kThreads)
+    estimate_kernel(const uint8_t* __restrict__ regs, float2* __restrict__ out,
+                    int64_t n_rows, int row_vecs, int g_log2,
+                    int regs_per_row) {
+  using V = repro::Vec<kVec>;
+  const int g = 1 << g_log2;
   const int lane = threadIdx.x & 31;
+  const int sub = lane & (g - 1);
+  const int per_warp = 32 >> g_log2;
+  const int loads = row_vecs < kLoads ? row_vecs : kLoads;
+  const int64_t warp =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
   const int64_t warps = (static_cast<int64_t>(gridDim.x) * blockDim.x) >> 5;
-  for (int64_t row =
-           (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) >> 5;
-       row < n_rows; row += warps) {
-    const uint32_t* v = reinterpret_cast<const uint32_t*>(regs + row * width);
-    uint32_t s = 0u;
-    int z = 0;
-    for (int i = lane; i < (width >> 2); i += 32)
-      repro::add_lane_stats<true>(v[i], &s, &z);
-    s = repro::warp_sum(s);
-    z = repro::warp_sum(z);
-    if (lane == 0) {
-      out[2 * row] = repro::Harmonic<true>::finish(s);
-      out[2 * row + 1] = static_cast<float>(z);
+  const typename V::T* vecs = reinterpret_cast<const typename V::T*>(regs);
+  // `first` is warp-uniform, so every lane reaches the shuffles below
+  for (int64_t first = warp * per_warp; first < n_rows;
+       first += warps * per_warp) {
+    const int64_t row = first + (lane >> g_log2);
+    unsigned long long fix = 0;  // byte: units of 2^-27; packed: 2^-15
+    double tiny = 0.0;           // byte registers > 27
+    int nz = 0;
+    if (row < n_rows) {
+      const typename V::T* v = vecs + row * row_vecs;
+      for (int i = sub; i < row_vecs; i += g * kLoads) {
+        typename V::T buf[kLoads];
+#pragma unroll
+        for (int j = 0; j < kLoads; ++j) {
+          if (j < loads) buf[j] = v[i + j * g];
+        }
+#pragma unroll
+        for (int j = 0; j < kLoads; ++j) {
+          if (j < loads) {
+            if constexpr (kPacked) {
+              uint32_t part = 0u;
+#pragma unroll
+              for (int k = 0; k < kVec / 4; ++k) {
+                packed_word(V::word(buf[j], k), &part, &nz);
+              }
+              fix += part;
+            } else {
+              byte_vec<kVec>(buf[j], &fix, &tiny, &nz);
+            }
+          }
+        }
+      }
+    }
+    for (int o = g >> 1; o > 0; o >>= 1) {
+      fix += __shfl_xor_sync(0xFFFFFFFFu, fix, o);
+      nz += __shfl_xor_sync(0xFFFFFFFFu, nz, o);
+    }
+    if (!kPacked && __any_sync(0xFFFFFFFFu, tiny != 0.0)) {
+      for (int o = g >> 1; o > 0; o >>= 1) {
+        tiny += __shfl_xor_sync(0xFFFFFFFFu, tiny, o);
+      }
+    }
+    if (sub == 0 && row < n_rows) {
+      // exact (fix < 2^43) until the one rounding to float32
+      const float s =
+          kPacked ? repro::Harmonic<true>::finish(static_cast<uint32_t>(fix))
+                  : __double2float_rn(__dadd_rn(
+                        __dmul_rn(static_cast<double>(fix), 1.0 / kFixOne),
+                        tiny));
+      out[row] = make_float2(s, static_cast<float>(regs_per_row - nz));
     }
   }
+}
+
+template <bool kPacked, int kVec>
+int launch(const uint8_t* regs, float* out, int64_t n_rows, int row_bytes,
+           int regs_per_row, cudaStream_t stream) {
+  const int row_vecs = row_bytes / kVec;
+  const int g_log2 = repro::group_log2(row_vecs, kLoads);
+  const int64_t rows_per_block = (kThreads / 32) * (32 >> g_log2);
+  const unsigned int blocks =
+      repro::persistent_grid<estimate_kernel<kPacked, kVec>>(
+          kThreads, (n_rows + rows_per_block - 1) / rows_per_block,
+          kBlocksPerSM);
+  estimate_kernel<kPacked, kVec><<<blocks, kThreads, 0, stream>>>(
+      regs, reinterpret_cast<float2*>(out), n_rows, row_vecs, g_log2,
+      regs_per_row);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kPacked>
+int launch_any(const uint8_t* regs, float* out, int64_t n_rows, int row_bytes,
+               int regs_per_row, cudaStream_t stream) {
+  if (n_rows == 0) return 0;
+  const bool wide = kVecBytes == 16 && row_bytes % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(regs) % 16 == 0;
+  return wide ? launch<kPacked, 16>(regs, out, n_rows, row_bytes,
+                                    regs_per_row, stream)
+              : launch<kPacked, 8>(regs, out, n_rows, row_bytes, regs_per_row,
+                                   stream);
 }
 
 }  // namespace
 
 extern "C" int hll_estimate_stats(const uint8_t* regs, float* out,
                                   int64_t n_rows, int r, cudaStream_t stream) {
-  if (n_rows == 0) return 0;
-  constexpr int kThreads = 256;
-  hll_estimate_kernel<<<repro::grid_for(n_rows * 32, kThreads), kThreads, 0,
-                        stream>>>(regs, out, n_rows, r);
-  return static_cast<int>(cudaGetLastError());
+  return launch_any<false>(regs, out, n_rows, r, r, stream);
 }
 
 // r: registers per row; the packed row is r / 2 bytes (r >= 16).
 extern "C" int hll_estimate_stats_packed(const uint8_t* regs, float* out,
                                          int64_t n_rows, int r,
                                          cudaStream_t stream) {
-  if (n_rows == 0) return 0;
-  constexpr int kThreads = 256;
-  hll_estimate_packed_kernel<<<repro::grid_for(n_rows * 32, kThreads),
-                               kThreads, 0, stream>>>(regs, out, n_rows,
-                                                      r >> 1);
-  return static_cast<int>(cudaGetLastError());
+  return launch_any<true>(regs, out, n_rows, r >> 1, r, stream);
 }

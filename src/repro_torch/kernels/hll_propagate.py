@@ -11,7 +11,8 @@ no-op. On the packed layout (``uint8[V, r/2]``, launcher
 The kernel is a pull over a routing sorted by ``dst``: on a CUDA tensor
 the wrapper requires ``dst`` to be non-decreasing (one pass over it) and
 raises ``ValueError`` otherwise; :func:`sort_routing` puts any routing in
-that order, and the engine builds its routing with it once per version.
+that order, the engine builds its routing with it once per version, and
+``ops.propagate`` sorts a routing it finds out of order.
 On a CPU tensor the wrapper runs :func:`plain`, the plain PyTorch
 version, which takes the edges in any order.
 """
@@ -21,7 +22,7 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["hll_propagate", "plain", "sort_routing"]
+__all__ = ["dst_sorted", "hll_propagate", "plain", "sort_routing"]
 
 
 def sort_routing(src: torch.Tensor, dst: torch.Tensor,
@@ -32,6 +33,12 @@ def sort_routing(src: torch.Tensor, dst: torch.Tensor,
     on the order (register max is commutative and idempotent)."""
     dst_sorted, order = torch.sort(dst, stable=True)
     return src[order], dst_sorted
+
+
+def dst_sorted(dst: torch.Tensor) -> bool:
+    """Whether ``dst`` is non-decreasing (one pass, a host sync on the
+    card): the order the card's kernel takes."""
+    return dst.shape[0] < 2 or not bool((dst[1:] < dst[:-1]).any())
 
 
 def plain(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, *,
@@ -55,7 +62,7 @@ def hll_propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     if regs.data_ptr() % 16:
         raise ValueError("regs must be 16-byte aligned on the card: the "
                          "propagate kernel reads rows in 16-byte words")
-    if dst.shape[0] > 1 and bool((dst[1:] < dst[:-1]).any()):
+    if not dst_sorted(dst):
         raise ValueError("dst must be non-decreasing on the card: the "
                          "propagate kernel pulls over a dst-sorted routing "
                          "(sort it with sort_routing)")

@@ -2,9 +2,13 @@
 
 * accumulate: masked edges are skipped by the kernel and park on row 0
   with rho 0 in the plain version, ``ops.py:77-87``;
-* propagate: the kernel runs over the live routing; a ``(0, 0)`` slot
-  would be a self-merge no-op, which is how the JAX package parks its
-  masked slots (``ops.py:178-180``);
+* propagate: masked slots are dropped before the launch, which equals
+  the JAX package's parking of them on ``(0, 0)``, a self-merge no-op
+  (``ops.py:178-180``); on the card a routing whose ``dst`` is not
+  non-decreasing is sorted first (``hll_propagate.sort_routing``: the
+  kernel pulls over dst-sorted edge runs) and a panel that is not 16-byte
+  aligned is copied, so edges come in any order, as the reference takes
+  them;
 * estimate: the kernel's ``(s, z)`` are combined by the config's
   estimator (Flajolet, ``ops.py:208-224``, or LogLogBeta); an ADS
   config takes the Flajolet combination, its plain floor;
@@ -24,8 +28,7 @@ JAX package's plain versions unpack or merge nibble planes
 
 The CUDA kernels need no block padding (each masks its own ragged edge),
 and their launch shapes are constants in ``csrc/``; the autotune table of
-the JAX package is not ported yet. On the card, propagate needs its
-routing sorted by ``dst`` (``hll_propagate.sort_routing``).
+the JAX package is not ported yet.
 """
 from __future__ import annotations
 
@@ -33,11 +36,13 @@ import torch
 
 from repro_torch.core import ads, hll
 from repro_torch.core.hll import HLLConfig
+from repro_torch.kernels import _build
 from repro_torch.kernels.ertl_stats import ertl_stats as _ertl_stats
 from repro_torch.kernels.hip_delta import hip_delta_rows
 from repro_torch.kernels.hll_accumulate import hll_accumulate
 from repro_torch.kernels.hll_estimate import hll_estimate_stats
-from repro_torch.kernels.hll_propagate import hll_propagate
+from repro_torch.kernels.hll_propagate import (
+    dst_sorted, hll_propagate, sort_routing)
 from repro_torch.kernels.intersection_stats import (
     intersection_stats as _intersection_stats)
 from repro_torch.kernels.union_estimate import union_estimate_stats
@@ -56,8 +61,19 @@ def accumulate(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
 
 
 def propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+              mask: torch.Tensor | None = None,
               layout: str = "byte") -> torch.Tensor:
-    """One Algorithm 2 merge pass into a fresh panel."""
+    """One Algorithm 2 merge pass into a fresh panel, over edges in any
+    order; ``mask`` (bool[E]) drops the slots where it is False. A
+    dst-sorted routing, as the engine builds it, is launched as it is."""
+    if mask is not None:
+        _build.check_ids(mask, "mask", regs, src.shape[0], dtype=torch.bool)
+        src, dst = src[mask], dst[mask]
+    if _build.check_device(regs, "regs"):
+        if not dst_sorted(dst):
+            src, dst = sort_routing(src, dst)
+        if regs.data_ptr() % 16:
+            regs = regs.clone()
     return hll_propagate(regs, src, dst, layout=layout)
 
 

@@ -135,6 +135,75 @@ def test_estimate_matches_plain(dev, p, n):
     torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-6, atol=0)
 
 
+# The row-statistics kernels (estimate, hip_delta) give each row a group
+# of 1-32 lanes, 32-1 rows a warp, by row width; these row counts leave
+# every such group ragged at every p: 32 / g +- 1 rows for each g.
+RAGGED_ROWS = (1, 2, 3, 5, 7, 9, 15, 17, 31, 33, 1001)
+
+
+def _offset(t):
+    """``t``'s copy 8 bytes off 16-byte alignment (the 8-byte loads)."""
+    buf = torch.empty(t.numel() + 8, dtype=t.dtype, device=t.device)
+    out = buf[8:].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 8
+    return out
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+@pytest.mark.parametrize("p", list(range(4, 17)))
+def test_estimate_ragged_rows_match_plain(dev, layout, p):
+    """Both layouts at every p, every ragged row count, all-zero rows,
+    byte registers up to 255 (words that take exp2f) and panels that
+    allow only 8-byte loads: byte ``z`` exact and ``s`` within
+    ``rtol=1e-6``; packed bit for bit, and equal to the byte kernel on
+    the unpacked panel (both round the exact sum once)."""
+    from repro_torch.kernels import packing
+    rng = np.random.default_rng(p * 31 + (layout == "packed"))
+    name = _build.kernel_name("hll_estimate_stats", layout)
+    for n in RAGGED_ROWS:
+        full = rng.integers(0, 22, (n, 1 << p)).astype(np.uint8)
+        full[::3] = 0
+        if layout == "byte":
+            full[1::3, ::7] = rng.integers(100, 256, full[1::3, ::7].shape)
+        regs = torch.from_numpy(full).to(dev)
+        if layout == "packed":
+            regs = packing.pack_rows(regs)
+        want = hll_estimate.plain(regs, layout=layout)
+        for panel in (regs, _offset(regs)):
+            got = _launched(name, lambda: hll_estimate.hll_estimate_stats(
+                panel, layout=layout))
+            assert torch.equal(got[:, 1], want[:, 1]), n
+            if layout == "packed":
+                assert torch.equal(got, want), n
+            else:
+                torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-6,
+                                           atol=0)
+        assert bool((got[::3, 1] == float(1 << p)).all())
+        if layout == "packed":
+            assert torch.equal(got, hll_estimate.hll_estimate_stats(
+                packing.unpack_rows(regs)))
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+def test_estimate_triangle_block_matches_plain(dev, layout):
+    """2^18 + 3 rows at p=8, the triangle phase's block and a ragged
+    tail, on a persistent grid that strides over many row groups."""
+    from repro_torch.kernels import packing
+    rng = np.random.default_rng(18)
+    regs = _panel(rng, (1 << 18) + 3, 8, 30, dev)
+    if layout == "packed":
+        regs = packing.pack_rows(regs)
+    got = _launched(_build.kernel_name("hll_estimate_stats", layout),
+                    lambda: hll_estimate.hll_estimate_stats(regs,
+                                                            layout=layout))
+    want = hll_estimate.plain(regs, layout=layout)
+    assert torch.equal(got[:, 1], want[:, 1])
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-6, atol=0)
+    if layout == "packed":
+        assert torch.equal(got, want)
+
+
 def _routing(src, dst, dev):
     """A numpy routing on the card, sorted by dst as the kernel needs."""
     return hll_propagate.sort_routing(
@@ -228,6 +297,44 @@ def test_propagate_rejects_unsorted_dst(dev, layout):
     hll_propagate.hll_propagate(regs, s, d, layout=layout)
 
 
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+@pytest.mark.parametrize("case", ["mask", "unsorted", "both", "misaligned"])
+def test_ops_propagate_any_order_and_mask(dev, layout, case):
+    """``ops.propagate`` on the card takes what the reference takes: a
+    mask, an unsorted ``dst``, both, and (``misaligned``: both, on a panel
+    8 bytes off 16-byte alignment) a panel the kernel cannot read as it
+    lies. It launches the kernel and equals the CPU pass (the inputs of
+    ``tests/test_torch_kernels.py``'s parity test against the JAX
+    ``ops.propagate(impl="ref")``)."""
+    from repro_torch.kernels import ops, packing
+    rng = np.random.default_rng(len(case) + 17 * (layout == "packed"))
+    v, e, p = 40, 600, 6
+    full = rng.integers(0, 20 if layout == "packed" else 30, (v, 1 << p))
+    regs = torch.from_numpy(full.astype(np.uint8))
+    if layout == "packed":
+        regs = packing.pack_rows(regs)
+    src = rng.integers(0, v, e).astype(np.int32)
+    dst = rng.integers(0, v, e).astype(np.int32)
+    if case == "mask":
+        order = np.argsort(dst, kind="stable")
+        src, dst = src[order], dst[order]
+    mask = None if case == "unsorted" else rng.random(e) > 0.4
+    cpu = [None if x is None else torch.from_numpy(x)
+           for x in (src, dst, mask)]
+    want = ops.propagate(regs, *cpu, layout=layout)
+    card = regs.to(dev)
+    if case == "misaligned":
+        buf = torch.zeros(card.numel() + 8, dtype=torch.uint8, device=dev)
+        card = buf[8:].view(card.shape)
+        card.copy_(regs)
+        assert card.data_ptr() % 16 == 8
+    args = [None if x is None else x.to(dev) for x in cpu]
+    got = _launched(_build.kernel_name("hll_propagate", layout),
+                    lambda: ops.propagate(card, *args, layout=layout))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(card.cpu(), regs)  # the input is left as it was
+
+
 @pytest.mark.parametrize("p", [4, 8, 16])
 @pytest.mark.parametrize("b", [1, 77, 4096])
 def test_intersection_stats_match_plain(dev, p, b):
@@ -302,6 +409,33 @@ def test_hip_delta_matches_plain(dev, p, n):
                     lambda: hip_delta.hip_delta_rows(prev_t, cur_t))
     assert torch.equal(got, hip_delta.plain(prev_t, cur_t))
     assert bool((got[::4] == 0).all())
+
+
+@pytest.mark.parametrize("p", [4, 6, 8, 12, 16])
+def test_hip_delta_mixed_paths_match_plain(dev, p):
+    """Words whose prev bytes are all below 30 (the 32-bit fast path)
+    beside words holding a prev byte of 30-61 (the general path), mixed
+    within one row and across the rows of one warp; cur bytes up to 255
+    in fast words; every ragged row count; panels that allow only 8-byte
+    loads. Bit for bit."""
+    rng = np.random.default_rng(p + 4242)
+    top = 65 - p
+    for n in RAGGED_ROWS:
+        prev = rng.integers(0, 30, (n, 1 << p))
+        big = rng.random(prev.shape) < 0.02  # a few words go general
+        prev[big] = rng.integers(30, top + 1, int(big.sum()))
+        prev[::2] = np.minimum(prev[::2], 29)  # whole rows stay fast
+        cur = np.clip(prev + rng.integers(-2, 4, prev.shape), 0, top)
+        wild = rng.random(prev.shape) < 0.01
+        cur[wild] = rng.integers(128, 256, int(wild.sum()))
+        prev_t, cur_t = (torch.from_numpy(x.astype(np.uint8)).to(dev)
+                         for x in (prev, cur))
+        want = hip_delta.plain(prev_t, cur_t)
+        for a, b in ((prev_t, cur_t), (_offset(prev_t), _offset(cur_t)),
+                     (prev_t, _offset(cur_t))):
+            got = _launched("hip_delta_rows",
+                            lambda: hip_delta.hip_delta_rows(a, b))
+            assert torch.equal(got, want), n
 
 
 def test_hip_delta_foreign_bytes(dev):

@@ -6,10 +6,11 @@ Tolerances and why:
 * register tables byte-identical (integer scatter-max of the same hash);
 * ``degrees`` and ``neighborhood`` to ``rtol=1e-5``: float32 estimates
   from harmonic sums taken in another order;
-* ``intersection_size`` ``"ie"`` to ``1e-5`` and ``"mle"`` to ``1e-4`` of
+* ``intersection_size`` ``"ie"`` to ``1e-5`` of
   ``|x| + d̃(u) + d̃(v) + |N(u) ∪ N(v)|``: the estimate is a difference of
   float32 estimates and keeps their absolute rounding error (see
-  ``tests/test_torch_intersection.py``).
+  ``tests/test_torch_intersection.py``); ``"mle"`` to ``1e-4`` of
+  ``|x|`` alone.
 """
 import numpy as np
 import pytest
@@ -173,8 +174,10 @@ def test_intersection_matches_jax(pair, method, rtol):
     assert got.shape == (len(pairs),)
     deg = np.asarray(ref.degrees())
     union = np.asarray(ref.union_size([list(pr) for pr in pairs]))
+    # "ie" is a difference of estimates: its error scales with them;
+    # "mle" is held to its value alone (measured worst 2.1e-6)
     scale = deg[pairs[:, 0]] + deg[pairs[:, 1]] + union
-    _close(got, want, rtol, scale)
+    _close(got, want, rtol, scale if method == "ie" else 0.0)
 
 
 def test_intersection_scalar_pair(pair):

@@ -8,9 +8,10 @@ Tolerances and why:
   from, ``|ea| + |eb| + |eu|``. Each estimate matches to a few float32
   ulps, and ``ea + eb - eu`` keeps their absolute rounding error, so
   measured against a near-zero difference alone it would be unbounded.
-* ``"mle"``: ``rtol=1e-4``, the tolerance ``tests/test_intersection.py:58``
-  uses, on the same scale: float32 Newton iterates in another summation
-  order, started from that inclusion-exclusion point.
+* ``"mle"``: ``rtol=1e-4`` of the value alone, the tolerance
+  ``tests/test_intersection.py:58`` uses: float32 Newton iterates in
+  another summation order, started from that inclusion-exclusion point
+  (measured worst on the CPU: 3.2e-5, p=8 seed 0).
 """
 import functools
 
@@ -72,7 +73,8 @@ def test_estimate_from_pair_stats_matches_jax(p, seed, method, rtol, iters):
     got = intersection.estimate_from_pair_stats(
         torch.from_numpy(stats), torch.from_numpy(sz), HLLConfig(p=p), method,
         iters=iters).numpy()
-    bound = rtol * (np.abs(want) + _scale(sz, jcfg))
+    scale = _scale(sz, jcfg) if method == "ie" else 0.0
+    bound = rtol * (np.abs(want) + scale)
     assert np.all(np.abs(got - want) <= bound), np.max(np.abs(got - want) / bound)
 
 

@@ -129,6 +129,43 @@ def test_propagate_wrapper_matches_jax_ops_with_padding():
     np.testing.assert_array_equal(panel.numpy(), regs)  # input untouched
 
 
+def _any_order_routing(rng, v, e, case):
+    """(src, dst, mask) numpy routing of e edges over v rows: "mask" is
+    dst-sorted with a mask, "unsorted" in random order with none, "both"
+    in random order with a mask."""
+    src = rng.integers(0, v, e).astype(np.int32)
+    dst = rng.integers(0, v, e).astype(np.int32)
+    if case == "mask":
+        order = np.argsort(dst, kind="stable")
+        src, dst = src[order], dst[order]
+    mask = None if case == "unsorted" else rng.random(e) > 0.4
+    return src, dst, mask
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+@pytest.mark.parametrize("case", ["mask", "unsorted", "both"])
+def test_ops_propagate_any_order_and_mask_matches_jax_ops(layout, case):
+    """``ops.propagate`` with a mask and/or an unsorted ``dst`` equals the
+    JAX package's ``ops.propagate(..., impl="ref")`` byte for byte."""
+    from repro_torch.kernels import packing
+    rng = np.random.default_rng(len(case) + 17 * (layout == "packed"))
+    v, e, p = 40, 600, 6
+    regs = _panel(rng, v, p, hi=20 if layout == "packed" else 30)
+    if layout == "packed":
+        regs = packing.pack_rows(torch.from_numpy(regs)).numpy()
+    src, dst, mask = _any_order_routing(rng, v, e, case)
+    want = np.asarray(jax_ops.propagate(
+        jnp.asarray(regs), jnp.asarray(src), jnp.asarray(dst),
+        mask=None if mask is None else jnp.asarray(mask), impl="ref",
+        layout=layout))
+    got = ops.propagate(torch.from_numpy(regs), torch.from_numpy(src),
+                        torch.from_numpy(dst),
+                        None if mask is None else torch.from_numpy(mask),
+                        layout=layout)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not np.array_equal(want, regs)
+
+
 def test_propagate_reads_the_frozen_panel():
     """On the path 0-1-2, one pass reaches one hop only.
 

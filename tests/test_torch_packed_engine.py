@@ -13,9 +13,10 @@ Tolerances, those of the byte tests and why:
   (``tests/test_torch_engine.py``, ``tests/test_torch_union.py``): float32
   estimates, the port's harmonic sums exact, the reference's float32
   ``exp2`` sums in another order;
-* ``intersection_size`` ``"ie"`` to ``1e-5`` and ``"mle"`` to ``1e-4`` of
-  ``|x| + d(u) + d(v) + |N(u) ∪ N(v)|``, and triangle totals and top-k
-  values to ``1e-4`` of that scale summed over their edges
+* ``intersection_size`` ``"ie"`` to ``1e-5`` of
+  ``|x| + d(u) + d(v) + |N(u) ∪ N(v)|`` and ``"mle"`` to ``1e-4`` of
+  ``|x|`` alone, and triangle totals and top-k values to ``1e-4`` of the
+  ``"ie"`` scale summed over their edges
   (``tests/test_torch_triangles.py``). The reference unpacks the whole
   panel for the triangle queries; the port reads it packed.
 """
@@ -145,11 +146,12 @@ def test_packed_intersection_matches_jax(pair, method, rtol):
     want = np.asarray(ref.intersection_size(pairs, method=method,
                                             iters=ITERS))
     got = port.intersection_size(pairs, method=method, iters=ITERS)
-    _close(got, want, rtol, scale)
+    # "mle" is held to its value alone (measured worst 1.6e-6)
+    _close(got, want, rtol, scale if method == "ie" else 0.0)
 
 
 def test_packed_query_batch_matches_per_kind_and_jax(pair):
-    ref, port, edges, n, pairs, scale = pair
+    ref, port, edges, n, pairs, _ = pair
     sets = [edges[i:i + 3].ravel() for i in range(0, 60, 3)]
     got = port.query_batch(degrees=True, vertex_sets=sets, pairs=pairs,
                            iters=ITERS)
@@ -161,7 +163,7 @@ def test_packed_query_batch_matches_per_kind_and_jax(pair):
                            iters=ITERS)
     np.testing.assert_allclose(got["union"], np.asarray(want["union"]),
                                rtol=1e-5)
-    _close(got["intersection"], np.asarray(want["intersection"]), 1e-4, scale)
+    _close(got["intersection"], np.asarray(want["intersection"]), 1e-4)
 
 
 @pytest.fixture(scope="module")

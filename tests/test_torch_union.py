@@ -17,7 +17,8 @@ Tolerances and why:
   amplifies it (``test_estimate_beta_matches_jax_ops``);
 * ``query_batch`` equals the same engine's per-kind calls bit for bit
   (``np.array_equal``); against JAX it keeps the per-kind tolerances
-  (intersection ``ie`` 1e-5 and ``mle`` 1e-4 of the estimates' scale).
+  (intersection ``ie`` 1e-5 of the estimates' scale, ``mle`` 1e-4 of
+  its value alone).
 """
 import numpy as np
 import pytest
@@ -218,6 +219,8 @@ def test_query_batch_equals_per_kind_and_jax(pair, method, rtol):
     deg = np.asarray(ref.degrees())
     scale = (deg[pairs[:, 0]] + deg[pairs[:, 1]]
              + np.asarray(ref.union_size([list(pr) for pr in pairs])))
+    if method == "mle":  # held to its value alone (measured worst 1.1e-5)
+        scale = 0.0
     w = np.asarray(want["intersection"])
     assert np.all(np.abs(got["intersection"] - w)
                   <= rtol * (np.abs(w) + scale))
