@@ -20,6 +20,12 @@ Phases, one line each:
    accumulate, the ``scatter_reduce_`` yardstick. The estimate is also
    held on a sweep of p and ragged row counts in both layouts and timed
    on its own line at the triangle phase's block of 2^18 gathered rows.
+   ``intersection_stats`` and ``union_estimate_stats`` are also timed as
+   their C launchers alone (no wrapper), in both layouts; the pair
+   kernel's byte sums of A and B must equal ``hll_estimate_stats`` of
+   those rows bit for bit, and the union kernel is also held and timed
+   on a skewed panel (4,096 sets ``{v} ∪ N(v)`` whose degrees follow the
+   graph's own up to 1,023, a 4,096 x 1,024 panel).
    Accumulate runs the whole graph in one launch (every edge live, no
    mask) and is timed at
    the engine's launch shape, 2 x ``INGEST_BLOCK`` directed edges built
@@ -184,18 +190,94 @@ def bound_ms(n_bytes: float) -> float:
     return n_bytes / HBM_BYTES_PER_S * 1e3
 
 
-def neighbor_sets(np, edges, n, rng):
-    """``{v} ∪ N(v)`` for N_SETS seeded random vertices of degree 1-63.
+def launcher_ms(torch, name, args, reps: int = 20) -> float:
+    """Median device time of C launcher ``name`` alone (no wrapper, no
+    launch count) on ``args``, ``reps`` calls in a row."""
+    from repro_torch.kernels import _build
+    fn = getattr(_build.library(), name)
+
+    def call():
+        if fn(*args) != 0:
+            fail(f"{name} failed to launch")
+    return cuda_ms(torch, call, reps)
+
+
+def pair_launcher_ms(torch, regs, pa, pb, q, layout) -> float:
+    """``launcher_ms`` of intersection_stats on these pairs."""
+    from repro_torch.kernels import _build
+    b, w = pa.shape[0], regs.shape[1]
+    stats = torch.empty((b, 5, q + 2), dtype=torch.float32,
+                        device=regs.device)
+    sz = torch.empty((b, 3, 2), dtype=torch.float32, device=regs.device)
+    return launcher_ms(torch, _build.kernel_name("intersection_stats", layout),
+                       (regs.data_ptr(), pa.data_ptr(), pb.data_ptr(),
+                        stats.data_ptr(), sz.data_ptr(), b, regs.shape[0],
+                        2 * w if layout == "packed" else w, q,
+                        torch.cuda.current_stream().cuda_stream))
+
+
+def set_launcher_ms(torch, regs, ids, mask, layout) -> float:
+    """``launcher_ms`` of union_estimate_stats on this set panel."""
+    from repro_torch.kernels import _build
+    b, w = ids.shape[0], regs.shape[1]
+    out = torch.empty((b, 2), dtype=torch.float32, device=regs.device)
+    return launcher_ms(torch, _build.kernel_name("union_estimate_stats",
+                                                 layout),
+                       (regs.data_ptr(), ids.data_ptr(), mask.data_ptr(),
+                        out.data_ptr(), b, regs.shape[0], ids.shape[1],
+                        2 * w if layout == "packed" else w,
+                        torch.cuda.current_stream().cuda_stream))
+
+
+def compare_skewed_union(torch, np, regs, skew, layout):
+    """union_estimate_stats against its plain version on the skewed panel:
+    4,096 sets whose degrees follow the graph's own distribution up to
+    1,023 (a 4,096 x 1,024 panel); timed on a line of its own."""
+    from repro_torch.engine import plans
+    from repro_torch.kernels import union_estimate
+    ids_np, mask_np = plans.pad_sets(skew)
+    ids = torch.from_numpy(ids_np).to(regs.device)
+    mask = torch.from_numpy(mask_np).to(regs.device)
+    got = union_estimate.union_estimate_stats(regs, ids, mask, layout=layout)
+    want = union_estimate.plain(regs, ids, mask, layout=layout)
+    torch.cuda.synchronize()
+    exact = torch.equal(got, want) if layout == "packed" else (
+        torch.equal(got[:, 1], want[:, 1]) and torch.allclose(
+            got[:, 0], want[:, 0], rtol=1e-6, atol=0))
+    if not exact:
+        fail(f"union_estimate_stats ({layout}) differs from its plain "
+             f"version on the skewed panel")
+    ms = cuda_ms(torch, lambda: union_estimate.union_estimate_stats(
+        regs, ids, mask, layout=layout), 20)
+    alone = set_launcher_ms(torch, regs, ids, mask, layout)
+    plain_ms = cuda_ms(torch, lambda: union_estimate.plain(
+        regs, ids, mask, layout=layout), 3)
+    members = int(mask_np.sum())
+    bnd = bound_ms(np.unique(ids_np[mask_np]).size * regs.shape[1]
+                   + 5 * ids_np.size + 8 * ids_np.shape[0])
+    log(f"kernel vs plain: union_estimate_stats ({layout}) on the skewed "
+        f"panel: max abs err {float((got - want).abs().max())}, kernel "
+        f"{ms:.4f} ms, launcher alone {alone:.4f} ms "
+        f"({alone * 1e6 / members:.3f} ns a member row), plain "
+        f"{plain_ms:.4f} ms, bound {bnd:.4f} ms (bytes); "
+        f"{ids_np.shape[0]} x {ids_np.shape[1]} panel, {members} members")
+
+
+def neighbor_sets(np, edges, n, rng, count=None, max_degree=63):
+    """``{v} ∪ N(v)`` for ``count`` (default N_SETS) seeded random vertices
+    of degree 1 to ``max_degree``, drawn uniformly, so their degrees
+    follow the graph's own distribution below the cap.
 
     One vectorised pass over the edge list: the directed entries whose
     source was chosen are sorted by the source's slot and split per set.
-    Returns (vertices int64[N_SETS], list of int64 id arrays).
+    Returns (vertices int64[count], list of int64 id arrays).
     """
+    count = N_SETS if count is None else count
     deg = np.bincount(edges.ravel(), minlength=n)
-    verts = rng.choice(np.flatnonzero((deg >= 1) & (deg <= 63)), N_SETS,
-                       replace=False)
+    verts = rng.choice(np.flatnonzero((deg >= 1) & (deg <= max_degree)),
+                       count, replace=False)
     slot = np.full(n, -1, np.int64)
-    slot[verts] = np.arange(N_SETS)
+    slot[verts] = np.arange(count)
     src = np.concatenate([edges[:, 0], edges[:, 1]])
     dst = np.concatenate([edges[:, 1], edges[:, 0]])
     keep = slot[src] >= 0
@@ -205,7 +287,7 @@ def neighbor_sets(np, edges, n, rng):
     return verts, [np.concatenate([[v], part]) for v, part in zip(verts, parts)]
 
 
-def compare_kernels(torch, np, edges, n, pairs, sets, report):
+def compare_kernels(torch, np, edges, n, pairs, sets, skew, report):
     """Phase 4: each kernel against its plain version on the card."""
     from repro_torch.engine import plans
     from repro_torch.kernels import ertl_stats, hll_accumulate, hll_estimate
@@ -272,21 +354,27 @@ def compare_kernels(torch, np, edges, n, pairs, sets, report):
     pa, pb = ids[:, 0].contiguous(), ids[:, 1].contiguous()
     st_k, sz_k = intersection_stats.intersection_stats(regs_k, pa, pb, q)
     st_p, sz_p = intersection_stats.plain(regs_k, pa, pb, q)
+    est = hll_estimate.hll_estimate_stats(regs_k)
     torch.cuda.synchronize()
     if not (torch.equal(st_k, st_p) and torch.equal(sz_k[..., 1], sz_p[..., 1])
             and torch.allclose(sz_k[..., 0], sz_p[..., 0], rtol=1e-6, atol=0)):
         fail("intersection_stats differs from its plain version")
+    if not (torch.equal(sz_k[:, 0, 0], est[pa.long(), 0])
+            and torch.equal(sz_k[:, 1, 0], est[pb.long(), 0])):
+        fail("intersection_stats' exact sums differ from hll_estimate_stats")
     err = max(float((st_k - st_p).abs().max()),
               float((sz_k - sz_p).abs().max()))
     ms = cuda_ms(torch, lambda: intersection_stats.intersection_stats(
         regs_k, pa, pb, q), 20)
+    alone = pair_launcher_ms(torch, regs_k, pa, pb, q, "byte")
     plain_ms = cuda_ms(torch, lambda: intersection_stats.plain(
         regs_k, pa, pb, q), 3)
     rows_read = torch.unique(ids).numel()
     b = ids.shape[0]
     report("intersection_stats", err, ms, plain_ms,
            bound_ms(rows_read * r + 8 * b + 4 * b * (5 * (q + 2) + 6)), None,
-           f"{b} pairs, {rows_read} distinct rows")
+           f"{b} pairs, {rows_read} distinct rows, launcher alone "
+           f"{alone:.4f} ms; s of A and B equal hll_estimate_stats")
 
     # union_estimate_stats: the main path's padded set panel
     ids_np, mask_np = plans.pad_sets(sets)
@@ -301,13 +389,16 @@ def compare_kernels(torch, np, edges, n, pairs, sets, report):
     err = float((out_k - out_p).abs().max())
     ms = cuda_ms(torch, lambda: union_estimate.union_estimate_stats(
         regs_k, ids, mask), 20)
+    alone = set_launcher_ms(torch, regs_k, ids, mask, "byte")
     plain_ms = cuda_ms(torch, lambda: union_estimate.plain(regs_k, ids, mask),
                        3)
     rows_read = np.unique(ids_np[mask_np]).size
     report("union_estimate_stats", err, ms, plain_ms,
            bound_ms(rows_read * r + 5 * ids_np.size + 8 * ids_np.shape[0]),
            None, f"{ids_np.shape[0]} x {ids_np.shape[1]} set panel, "
-                 f"{int(mask_np.sum())} members, {rows_read} distinct rows")
+                 f"{int(mask_np.sum())} members, {rows_read} distinct rows, "
+                 f"launcher alone {alone:.4f} ms")
+    compare_skewed_union(torch, np, regs_k, skew, "byte")
 
     # ertl_stats: 2^18 edge pairs gathered from the built panel
     pick = np.random.default_rng(SEED + 1).choice(len(edges), ERTL_PAIRS,
@@ -518,7 +609,8 @@ def compare_hip_delta(torch, np, prev, cur, report):
            f"D^1 -> D^2, {rows} rows, {grew} grew; sweep of p 4-16 equal")
 
 
-def compare_packed_kernels(torch, np, edges, n, pairs, sets, panel, report):
+def compare_packed_kernels(torch, np, edges, n, pairs, sets, skew, panel,
+                           report):
     """Phase 4, packed layout: each packed kernel against its plain
     version on the card at the main path's shapes (the scale-22 panel
     packed, 512 MiB), every output equal bit for bit, and equal to the
@@ -621,13 +713,15 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, panel, report):
               float((sz_k - sz_p).abs().max()))
     ms = cuda_ms(torch, lambda: intersection_stats.intersection_stats(
         regs_k, pa, pb, q, layout="packed"), 20)
+    alone = pair_launcher_ms(torch, regs_k, pa, pb, q, "packed")
     plain_ms = cuda_ms(torch, lambda: intersection_stats.plain(
         regs_k, pa, pb, q, layout="packed"), 3)
     rows_read = torch.unique(ids).numel()
     b = ids.shape[0]
     report("intersection_stats_packed", err, ms, plain_ms,
            bound_ms(rows_read * w + 8 * b + 4 * b * (5 * (q + 2) + 6)), None,
-           f"{b} pairs, {rows_read} distinct rows")
+           f"{b} pairs, {rows_read} distinct rows, launcher alone "
+           f"{alone:.4f} ms")
 
     # union_estimate_stats: the main path's padded set panel
     ids_np, mask_np = plans.pad_sets(sets)
@@ -644,13 +738,15 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, panel, report):
     err = float((out_k - out_p).abs().max())
     ms = cuda_ms(torch, lambda: union_estimate.union_estimate_stats(
         regs_k, ids, mask, layout="packed"), 20)
+    alone = set_launcher_ms(torch, regs_k, ids, mask, "packed")
     plain_ms = cuda_ms(torch, lambda: union_estimate.plain(
         regs_k, ids, mask, layout="packed"), 3)
     rows_read = np.unique(ids_np[mask_np]).size
     report("union_estimate_stats_packed", err, ms, plain_ms,
            bound_ms(rows_read * w + 5 * ids_np.size + 8 * ids_np.shape[0]),
            None, f"{ids_np.shape[0]} x {ids_np.shape[1]} set panel, "
-                 f"{rows_read} distinct rows")
+                 f"{rows_read} distinct rows, launcher alone {alone:.4f} ms")
+    compare_skewed_union(torch, np, regs_k, skew, "packed")
 
     # ertl_stats: 2^18 edge pairs gathered from the packed panel
     pick = np.random.default_rng(SEED + 1).choice(len(edges), ERTL_PAIRS,
@@ -1397,9 +1493,12 @@ def main() -> int:
             f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms (bytes), library "
             f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; {shape}")
 
-    panel = compare_kernels(torch, np, edges, n, pairs, sets, report)
+    skew = neighbor_sets(np, edges, n, np.random.default_rng(SEED + 5),
+                         max_degree=1023)[1]
+    panel = compare_kernels(torch, np, edges, n, pairs, sets, skew, report)
     packed_panel = compare_packed_kernels(torch, np, edges, n, pairs, sets,
-                                          panel, report)
+                                          skew, panel, report)
+    del skew
     counts, byte_deg = main_path(torch, np, edges, n, pairs, verts, sets,
                                  panel)
     packed_eng, packed_counts = packed_path(

@@ -77,18 +77,21 @@ LAUNCHERS = {"hll_estimate.cu": ("hll_estimate_stats",
              "hip_delta.cu": ("hip_delta_rows",)}
 
 
-def build_variants(root: str, baseline: str | None,
+def build_variants(root: str, baseline: str | None, variants_of=VARIANTS,
+                   launchers=LAUNCHERS, out_dir: str = "rowstats_sweep",
                    ) -> dict[str, dict[str, ctypes.CDLL]]:
-    """{source: {variant: library}}, every library compiled together
-    (``_build.compile_library``; each report kept beside its library)."""
+    """{source: {variant: library}} for the table ``variants_of`` (source
+    -> {variant: constants}), every library compiled together under
+    ``build/<out_dir>/`` (``_build.compile_library``; each report kept
+    beside its library)."""
     from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
     from repro_torch.kernels import _build
-    out = Path(root, "build", "rowstats_sweep")
+    out = Path(root, "build", out_dir)
     shutil.rmtree(out, ignore_errors=True)
     jobs = {}
-    for source, variants in VARIANTS.items():
+    for source, variants in variants_of.items():
         csrc = Path(root, "src", "repro_torch", "csrc")
         texts = {name: variant_source((csrc / source).read_text(), consts)
                  for name, consts in variants.items()}
@@ -107,11 +110,11 @@ def build_variants(root: str, baseline: str | None,
         logs = dict(zip(jobs, pool.map(
             lambda sl: _build.compile_library([sl[0]], sl[1]),
             jobs.values())))
-    libs: dict[str, dict[str, ctypes.CDLL]] = {s: {} for s in VARIANTS}
+    libs: dict[str, dict[str, ctypes.CDLL]] = {s: {} for s in variants_of}
     for (source, name), (_, path) in jobs.items():
         path.with_suffix(".log").write_text(logs[(source, name)])
         lib = ctypes.CDLL(str(path))
-        for kernel in LAUNCHERS[source]:
+        for kernel in launchers[source]:
             fn = getattr(lib, kernel)
             fn.argtypes = list(_build.KERNELS[kernel])
             fn.restype = ctypes.c_int

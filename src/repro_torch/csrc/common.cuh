@@ -1,7 +1,8 @@
 // Shared device helpers for the DegreeSketch kernels (sm_90a): the hash,
-// exact 2^-x, the per-word (s, z) terms of both register layouts, the
-// nibble max of the packed layout, the Eq. 19 histogram update, vector
-// loads and row groups, the row clamp, warp sums and grid sizes.
+// exact 2^-x, the nibble max of the packed layout, the Eq. 19 histogram
+// update, vector loads and row groups, register-wise maxima,
+// nonzero-register masks, the exact per-vector (s, z) sums of both
+// register layouts, the row clamp, warp sums and grid sizes.
 //
 // The hash is the one of repro/core/hashing.py, computed natively in
 // uint32_t: two murmur3 finalizers with distinct seed mixing, cross-mixed,
@@ -47,18 +48,6 @@ __device__ __forceinline__ float exp2_neg(uint32_t x) {
                    : exp2f(-static_cast<float>(x));
 }
 
-// Adds the 2^-x terms and zero count of the four register bytes of w;
-// T is float or double (each term is exact in both).
-template <typename T>
-__device__ __forceinline__ void add_word_stats(uint32_t w, T* s, int* z) {
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint32_t x = (w >> (8 * k)) & 0xFFu;
-    *s += exp2_neg(x);
-    *z += x == 0u;
-  }
-}
-
 // Counts one register pair (x, y) into a 5 * nb slice of Eq. 19
 // histograms, ordered [x<y at x, x>y at x, y<x at y, y>x at y, x==y at x],
 // with shared-memory integer atomics. Values >= nb count in no bin, as a
@@ -95,44 +84,6 @@ __device__ __forceinline__ uint32_t nib_max4(uint32_t a, uint32_t b) {
          (__vmaxu4((a >> 4) & 0x0F0F0F0Fu, (b >> 4) & 0x0F0F0F0Fu) << 4);
 }
 
-// Harmonic term of one register. Byte layout: 2^-x as float. Packed
-// layout: x <= 15, so the sum is kept exactly as the integer
-// sum 2^(15 - x) (at most 2^16 * 2^15 = 2^31 for r <= 2^16) and rounded
-// to float once at the end, so any order of summation gives the same
-// bits (ref.packed_stats does the same on the host).
-template <bool kPacked>
-struct Harmonic {
-  using Sum = float;
-  __device__ static __forceinline__ float term(uint32_t x) {
-    return exp2_neg(x);
-  }
-  __device__ static __forceinline__ float finish(float s) { return s; }
-};
-
-template <>
-struct Harmonic<true> {
-  using Sum = uint32_t;
-  __device__ static __forceinline__ uint32_t term(uint32_t x) {
-    return 0x8000u >> x;
-  }
-  __device__ static __forceinline__ float finish(uint32_t s) {
-    return __uint2float_rn(s) * 3.0517578125e-05f;  // exact: times 2^-15
-  }
-};
-
-// Adds the harmonic terms and zero count of the registers of word w.
-template <bool kPacked>
-__device__ __forceinline__ void add_lane_stats(
-    uint32_t w, typename Harmonic<kPacked>::Sum* s, int* z) {
-  using L = Lanes<kPacked>;
-#pragma unroll
-  for (int k = 0; k < L::kPerWord; ++k) {
-    const uint32_t x = (w >> (L::kBits * k)) & L::kMask;
-    *s += Harmonic<kPacked>::term(x);
-    *z += x == 0u;
-  }
-}
-
 // A 16- or 8-byte vector load (uint4 or uint2) and its 32-bit words.
 template <int kBytes>
 struct Vec;
@@ -151,6 +102,136 @@ struct Vec<8> {
   }
 };
 
+// Register-wise max of two words, or of two vectors, of either layout.
+template <bool kPacked>
+__device__ __forceinline__ uint32_t reg_max(uint32_t a, uint32_t b) {
+  return kPacked ? nib_max4(a, b) : __vmaxu4(a, b);
+}
+template <bool kPacked>
+__device__ __forceinline__ uint4 reg_max(const uint4& a, const uint4& b) {
+  return make_uint4(reg_max<kPacked>(a.x, b.x), reg_max<kPacked>(a.y, b.y),
+                    reg_max<kPacked>(a.z, b.z), reg_max<kPacked>(a.w, b.w));
+}
+template <bool kPacked>
+__device__ __forceinline__ uint2 reg_max(const uint2& a, const uint2& b) {
+  return make_uint2(reg_max<kPacked>(a.x, b.x), reg_max<kPacked>(a.y, b.y));
+}
+
+// The top bit of each register of w that is nonzero, and only those: the
+// low bits plus all-ones-but-the-top carry into the top bit of their own
+// register only (no add carries across a register).
+__device__ __forceinline__ uint32_t nonzero_bytes(uint32_t w) {
+  return (((w & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | w) & 0x80808080u;
+}
+__device__ __forceinline__ uint32_t nonzero_nibbles(uint32_t w) {
+  return (((w & 0x77777777u) + 0x77777777u) | w) & 0x88888888u;
+}
+template <bool kPacked>
+__device__ __forceinline__ uint32_t nonzero_regs(uint32_t w) {
+  return kPacked ? nonzero_nibbles(w) : nonzero_bytes(w);
+}
+
+// Exact harmonic sums. Byte layout: registers x <= 27 add 2^(27 - x) to a
+// fixed-point sum in units of 2^-27; larger ones (a few in a real panel,
+// or foreign bytes) add their float32 term 2^-x to a float64 `tiny`.
+// Packed layout: every register (x <= 15) adds 2^(15 - x), exactly.
+// harmonic_finish rounds the sum to float32 once, so s does not depend on
+// the order of summation or on the lanes' layout.
+constexpr uint32_t kFixOne = 1u << 27;
+
+// Byte layout: adds the terms of the kVec / 4 words of one vector to fix
+// and tiny and its nonzero bytes to nz.
+template <int kVec>
+__device__ __forceinline__ void byte_vec_stats(
+    const typename Vec<kVec>::T& v, unsigned long long* fix, double* tiny,
+    int* nz) {
+  using V = Vec<kVec>;
+  constexpr int kWords = kVec / 4;
+  uint32_t large = 0u;  // bit 7 of a byte: some word's byte is >= 28
+#pragma unroll
+  for (int k = 0; k < kWords; ++k) {
+    const uint32_t w = V::word(v, k);
+    *nz += __popc(nonzero_bytes(w));
+    large |= ((w & 0x7F7F7F7Fu) + 0x64646464u) | w;
+  }
+  if ((large & 0x80808080u) == 0u) {
+    // bits 5-7 of every byte are 0, so each wrapping shift's 5-bit amount
+    // is one byte; the vector's terms sum to at most 16 * 2^27 = 2^31
+    uint32_t part = 0u;
+#pragma unroll
+    for (int k = 0; k < kWords; ++k) {
+      const uint32_t w = V::word(v, k);
+      part += __funnelshift_r(kFixOne, 0u, w) +
+              __funnelshift_r(kFixOne, 0u, w >> 8) +
+              __funnelshift_r(kFixOne, 0u, w >> 16) +
+              __funnelshift_r(kFixOne, 0u, w >> 24);
+    }
+    *fix += part;
+    return;
+  }
+  // a byte > 27 somewhere in the vector: one rolled loop, kept out of the
+  // unrolled fast path (an out-of-line call would put the sums on the
+  // stack)
+#pragma unroll 1
+  for (int b = 0; b < kVec; ++b) {
+    const uint32_t x = (V::word(v, b >> 2) >> (8 * (b & 3))) & 0xFFu;
+    if (x <= 27u) {
+      *fix += kFixOne >> x;
+    } else {
+      *tiny += static_cast<double>(exp2_neg(x));
+    }
+  }
+}
+
+// Packed layout: adds the eight 2^(15 - x) terms of w to `part`, exactly
+// (a vector's sum is at most 32 * 2^15), and its nonzero nibbles to nz.
+__device__ __forceinline__ void packed_word_stats(uint32_t w, uint32_t* part,
+                                                  int* nz) {
+  *nz += __popc(nonzero_nibbles(w));
+  const uint32_t even = w & 0x0F0F0F0Fu;
+  const uint32_t odd = (w >> 4) & 0x0F0F0F0Fu;
+  uint32_t t = 0u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {  // the shift wraps at 32: bits 5-7 are 0
+    t += __funnelshift_r(0x8000u, 0u, even >> (8 * k)) +
+         __funnelshift_r(0x8000u, 0u, odd >> (8 * k));
+  }
+  *part += t;
+}
+
+// Adds the harmonic terms of one kVec-byte vector of either layout to fix
+// (units of 2^-27 byte, 2^-15 packed) and tiny (byte registers > 27), and
+// its nonzero registers to nz.
+template <bool kPacked, int kVec>
+__device__ __forceinline__ void add_vec_stats(const typename Vec<kVec>::T& v,
+                                              unsigned long long* fix,
+                                              double* tiny, int* nz) {
+  if constexpr (kPacked) {
+    uint32_t part = 0u;
+#pragma unroll
+    for (int k = 0; k < kVec / 4; ++k) {
+      packed_word_stats(Vec<kVec>::word(v, k), &part, nz);
+    }
+    *fix += part;
+  } else {
+    byte_vec_stats<kVec>(v, fix, tiny, nz);
+  }
+}
+
+// The sum of add_vec_stats's terms, rounded to float32 once (exact until
+// then: fix < 2^43 for rows of up to 2^16 registers).
+template <bool kPacked>
+__device__ __forceinline__ float harmonic_finish(unsigned long long fix,
+                                                 double tiny) {
+  if constexpr (kPacked) {  // fix <= 2^16 * 2^15: exact in 32 bits
+    return __uint2float_rn(static_cast<uint32_t>(fix)) *
+           3.0517578125e-05f;  // exact: times 2^-15
+  } else {
+    return __double2float_rn(
+        __dadd_rn(__dmul_rn(static_cast<double>(fix), 1.0 / kFixOne), tiny));
+  }
+}
+
 // log2 of the lanes that share a row of `row_vecs` vectors when each lane
 // takes `loads` of them a step (a power of two): row_vecs / loads lanes,
 // clamped to [1, 32], so g * loads divides row_vecs whenever g > 1.
@@ -166,25 +247,10 @@ __device__ __forceinline__ int64_t clamp_row(int64_t i, int64_t n_rows) {
   return i < 0 ? 0 : (i >= n_rows ? n_rows - 1 : i);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ double warp_sum(double v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ int warp_sum(int v) {
+// Sum of v over the warp, by a fixed xor-shuffle tree (int, unsigned,
+// 64-bit integers, float or double).
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
   return v;
@@ -200,13 +266,19 @@ inline unsigned int grid_for(int64_t work, int threads) {
 // `threads` threads a block) over `blocks` blocks of work: at most `per_sm`
 // on each SM of the current device, and no more than fit there at once,
 // so the grid is one wave and no block waits for a second.
+// `smem`: the launch's dynamic shared memory, which counts in what fits.
 template <auto kKernel>
-unsigned int persistent_grid(int threads, int64_t blocks, int per_sm) {
-  static const int fit = [threads] {
+unsigned int persistent_grid(int threads, int64_t blocks, int per_sm,
+                             size_t smem = 0) {
+  // what fits, cached for the last shared-memory size asked
+  static thread_local size_t fit_smem = ~size_t{0};
+  static thread_local int fit = 1;
+  if (smem != fit_smem) {
     int f = 0;
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&f, kKernel, threads, 0);
-    return f < 1 ? 1 : f;
-  }();
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&f, kKernel, threads, smem);
+    fit = f < 1 ? 1 : f;
+    fit_smem = smem;
+  }
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);

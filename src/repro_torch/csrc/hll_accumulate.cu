@@ -46,11 +46,6 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int64_t kTile = 32 * kEdgesPerThread;
 
-template <bool kPacked>
-__device__ __forceinline__ uint32_t merge_word(uint32_t a, uint32_t b) {
-  return kPacked ? repro::nib_max4(a, b) : __vmaxu4(a, b);
-}
-
 // mask may be null: every edge is live.
 template <bool kPacked>
 __global__ void __launch_bounds__(kThreads)
@@ -112,10 +107,10 @@ __global__ void __launch_bounds__(kThreads)
       if (live[k] && lane == __ffs(peers) - 1) {
         uint32_t v = 0u;
         for (unsigned int m = peers; m != 0u; m &= m - 1u)
-          v = merge_word<kPacked>(v, stage[warp][__ffs(m) - 1]);
+          v = repro::reg_max<kPacked>(v, stage[warp][__ffs(m) - 1]);
         uint32_t cur = old[k];
         for (;;) {
-          const uint32_t merged = merge_word<kPacked>(cur, v);
+          const uint32_t merged = repro::reg_max<kPacked>(cur, v);
           if (merged == cur) break;
           const uint32_t seen = atomicCAS(regs + word[k], cur, merged);
           if (seen == cur) break;

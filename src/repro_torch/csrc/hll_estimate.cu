@@ -15,7 +15,8 @@
 // loads of its row before it reduces any (p=8: 4 lanes x 64 bytes, 8 rows
 // a warp), a persistent grid of at most kBlocksPerSM resident blocks per
 // SM striding over row groups, log2(g) shuffle levels per row and one
-// float2 store. Per 32-bit word:
+// float2 store. Per 32-bit word (repro::add_vec_stats, shared with the
+// pair and set kernels):
 // * z counts the nonzero bytes with one carry-free add and a popcount;
 // * s is summed exactly in fixed point: when carry-free adds show every
 //   byte of a vector <= 27, each term 2^(27 - x) is one wrapping funnel shift
@@ -34,7 +35,7 @@
 // 4-bit registers a word. The even and odd nibbles are split into byte
 // lanes, and each term 2^(15 - x) is one wrapping funnel shift of 0x8000
 // by the nibble (its byte lane holds no other bit below bit 5). s is the
-// exact integer sum, rounded to float once (repro::Harmonic<true>), so
+// exact integer sum, rounded to float once (repro::harmonic_finish), so
 // the kernel equals the plain version bit for bit, and equals the byte
 // kernel on the unpacked panel (both are the exact sum rounded once).
 // The bytes bound halves.
@@ -47,72 +48,6 @@ constexpr int kVecBytes = 16;    // load width (8 where alignment forbids 16)
 constexpr int kLoads = 4;        // loads of its row a lane has in flight
 constexpr int kThreads = 512;
 constexpr int kBlocksPerSM = 8;  // persistent grid
-
-// Byte layout. Registers x <= 27 add 2^(27 - x) to an exact fixed-point
-// sum in units of 2^-27; larger (rare, or foreign) ones add their float32
-// term 2^-x to a float64 `tiny`.
-constexpr uint32_t kFixOne = 1u << 27;
-
-// Adds the terms of the kVec / 4 words of one vector to fix and tiny and
-// its nonzero bytes to nz.
-template <int kVec>
-__device__ __forceinline__ void byte_vec(
-    const typename repro::Vec<kVec>::T& v, unsigned long long* fix,
-    double* tiny, int* nz) {
-  using V = repro::Vec<kVec>;
-  constexpr int kWords = kVec / 4;
-  uint32_t large = 0u;  // bit 7 of a byte: some word's byte is >= 28
-#pragma unroll
-  for (int k = 0; k < kWords; ++k) {
-    const uint32_t w = V::word(v, k);
-    const uint32_t low7 = w & 0x7F7F7F7Fu;
-    // bit 7 of a byte: the byte is nonzero (no add carries out of a byte)
-    *nz += __popc(((low7 + 0x7F7F7F7Fu) | w) & 0x80808080u);
-    large |= (low7 + 0x64646464u) | w;
-  }
-  if ((large & 0x80808080u) == 0u) {
-    // bits 5-7 of every byte are 0, so each wrapping shift's 5-bit amount
-    // is one byte; the vector's terms sum to at most 16 * 2^27 = 2^31
-    uint32_t part = 0u;
-#pragma unroll
-    for (int k = 0; k < kWords; ++k) {
-      const uint32_t w = V::word(v, k);
-      part += __funnelshift_r(kFixOne, 0u, w) +
-              __funnelshift_r(kFixOne, 0u, w >> 8) +
-              __funnelshift_r(kFixOne, 0u, w >> 16) +
-              __funnelshift_r(kFixOne, 0u, w >> 24);
-    }
-    *fix += part;
-    return;
-  }
-  // a byte > 27 somewhere in the vector: one rolled loop, kept out of the
-  // unrolled fast path
-#pragma unroll 1
-  for (int b = 0; b < kVec; ++b) {
-    const uint32_t x = (V::word(v, b >> 2) >> (8 * (b & 3))) & 0xFFu;
-    if (x <= 27u) {
-      *fix += kFixOne >> x;
-    } else {
-      *tiny += static_cast<double>(repro::exp2_neg(x));
-    }
-  }
-}
-
-// Packed layout: adds the eight 2^(15 - x) terms of w to `part`, exactly
-// (a vector's sum is at most 32 * 2^15), and its nonzero nibbles to nz.
-__device__ __forceinline__ void packed_word(uint32_t w, uint32_t* part,
-                                            int* nz) {
-  *nz += __popc((((w & 0x77777777u) + 0x77777777u) | w) & 0x88888888u);
-  const uint32_t even = w & 0x0F0F0F0Fu;
-  const uint32_t odd = (w >> 4) & 0x0F0F0F0Fu;
-  uint32_t t = 0u;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {  // the shift wraps at 32: bits 5-7 are 0
-    t += __funnelshift_r(0x8000u, 0u, even >> (8 * k)) +
-         __funnelshift_r(0x8000u, 0u, odd >> (8 * k));
-  }
-  *part += t;
-}
 
 // row_vecs: kVec-byte vectors per row; g = 1 << g_log2 lanes per row;
 // regs_per_row: registers per row (the zero count is regs_per_row - nz).
@@ -149,16 +84,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int j = 0; j < kLoads; ++j) {
           if (j < loads) {
-            if constexpr (kPacked) {
-              uint32_t part = 0u;
-#pragma unroll
-              for (int k = 0; k < kVec / 4; ++k) {
-                packed_word(V::word(buf[j], k), &part, &nz);
-              }
-              fix += part;
-            } else {
-              byte_vec<kVec>(buf[j], &fix, &tiny, &nz);
-            }
+            repro::add_vec_stats<kPacked, kVec>(buf[j], &fix, &tiny, &nz);
           }
         }
       }
@@ -173,13 +99,8 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
     if (sub == 0 && row < n_rows) {
-      // exact (fix < 2^43) until the one rounding to float32
-      const float s =
-          kPacked ? repro::Harmonic<true>::finish(static_cast<uint32_t>(fix))
-                  : __double2float_rn(__dadd_rn(
-                        __dmul_rn(static_cast<double>(fix), 1.0 / kFixOne),
-                        tiny));
-      out[row] = make_float2(s, static_cast<float>(regs_per_row - nz));
+      out[row] = make_float2(repro::harmonic_finish<kPacked>(fix, tiny),
+                             static_cast<float>(regs_per_row - nz));
     }
   }
 }

@@ -98,17 +98,12 @@ __device__ __forceinline__ void store_vec(uint32_t* p, const Vec<kWords>& v) {
   }
 }
 
-template <bool kPacked>
-__device__ __forceinline__ uint32_t merge_word(uint32_t a, uint32_t b) {
-  return kPacked ? repro::nib_max4(a, b) : __vmaxu4(a, b);
-}
-
 template <bool kPacked, int kWords>
 __device__ __forceinline__ void merge_vec(Vec<kWords>* acc,
                                           const Vec<kWords>& v) {
 #pragma unroll
   for (int i = 0; i < kWords; ++i)
-    acc->w[i] = merge_word<kPacked>(acc->w[i], v.w[i]);
+    acc->w[i] = repro::reg_max<kPacked>(acc->w[i], v.w[i]);
 }
 
 // Folds the segment maximum `acc` of destination d into out[d] (this
@@ -137,7 +132,7 @@ __device__ __forceinline__ void flush(const uint32_t* __restrict__ regs,
     if (v == 0u) continue;
     uint32_t old = o[i];
     for (;;) {
-      const uint32_t merged = merge_word<kPacked>(old, v);
+      const uint32_t merged = repro::reg_max<kPacked>(old, v);
       if (merged == old) break;
       const uint32_t seen = atomicCAS(o + i, old, merged);
       if (seen == old) break;

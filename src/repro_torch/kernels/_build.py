@@ -151,11 +151,17 @@ def library() -> ctypes.CDLL:
 def launch(name: str, device: torch.device, *args) -> None:
     """Call C launcher ``name`` on ``device``; raise on a launch error.
 
-    Counts the launch only once the kernel was accepted.
+    Switches the current device only when ``device`` is another one (the
+    switch costs microseconds a call). Counts the launch only once the
+    kernel was accepted.
     """
     lib = library()
-    with torch.cuda.device(device):
-        err = getattr(lib, name)(*args)
+    fn = getattr(lib, name)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args)
     if err != 0:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError {err} "
@@ -175,15 +181,16 @@ def reset_launch_counts() -> None:
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """Raw handle of PyTorch's current CUDA stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Raw handle of PyTorch's current CUDA stream on ``t``'s device (the
+    raw query: building a ``torch.cuda.Stream`` costs microseconds)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check_device(t: torch.Tensor, name: str) -> bool:
     """True for a CUDA tensor, False for a CPU one; raise for others."""
-    if t.device.type == "cuda":
+    if t.is_cuda:
         return True
-    if t.device.type == "cpu":
+    if t.is_cpu:
         return False
     raise ValueError(f"{name} lies on {t.device}; only cuda and cpu are "
                      f"supported")
@@ -224,7 +231,7 @@ def check_ids(t: torch.Tensor, name: str, like: torch.Tensor,
     if t.dtype != dtype or t.dim() != 1 or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous 1-D {dtype} tensor, "
                          f"got {t.dtype}{list(t.shape)}")
-    if t.device != like.device:
+    if t.get_device() != like.get_device() or t.is_cpu != like.is_cpu:
         raise ValueError(f"{name} is on {t.device}, regs on {like.device}")
     if length is not None and t.shape[0] != length:
         raise ValueError(f"{name} has {t.shape[0]} entries, expected {length}")

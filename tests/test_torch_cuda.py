@@ -12,7 +12,10 @@ Shapes sweep what ``chip_smoke.py``'s single p=8 run does not: other
 precisions, ragged sizes, masked edges and set lanes, self-loops,
 duplicate edges and ids, register bytes above q + 1, hop panels whose
 registers fell, and the packed layout's six kernels (p = 4-16, registers
-at and above 15 before packing, the nibble-merge trap, exact sums).
+at and above 15 before packing, the nibble-merge trap, exact sums); the
+pair kernel on zero-heavy, all-zero, all-equal and foreign rows (its
+byte sums equal the estimate kernel's bit for bit), and the union kernel
+on a 1,024-member set among singletons and on one-lane panels.
 Tolerances as in ``tests/test_torch_kernels.py``: panels, histograms and
 zero counts exact, harmonic sums ``rtol=1e-6`` (packed sums exact), HIP
 increments exact (both sum exactly and round once); the card engine
@@ -379,6 +382,92 @@ def test_union_estimate_matches_plain(dev, p, b, lanes):
     assert bool((got[empty] == float(1 << p)).all())
     again = union_estimate.union_estimate_stats(regs, ids_t, mask_t)
     assert torch.equal(again, got)  # fixed reduction order: same bits
+
+
+def _accumulated_panel(p, dev, layout, case):
+    """A small RMAT graph's accumulate on the card (mostly zero registers
+    at p >= 8), or its variants: every row zero, every row equal to the
+    fullest row, or byte registers above q + 1 sprinkled in (packing
+    clamps them to 15)."""
+    from repro_torch.graph import generators
+    from repro_torch.kernels import packing
+    edges = generators.rmat(9, 8, seed=p)
+    directed = np.concatenate([edges, edges[:, ::-1]])
+    regs = torch.zeros((1 << 9, 1 << p), dtype=torch.uint8, device=dev)
+    hll_accumulate.hll_accumulate(
+        regs, torch.from_numpy(directed[:, 0].copy()).to(dev),
+        torch.from_numpy(directed[:, 1].astype(np.uint32)).to(dev), p=p,
+        seed=0)
+    if case == "zero":
+        regs.zero_()
+    elif case == "equal":
+        regs[:] = regs[int((regs > 0).sum(1).argmax())]
+    elif case == "foreign":
+        regs[1::7, ::3] = 70 + (64 - p)
+    return packing.pack_rows(regs) if layout == "packed" else regs
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+@pytest.mark.parametrize("p", [4, 8, 16])
+@pytest.mark.parametrize("case", ["accumulated", "zero", "equal", "foreign"])
+def test_intersection_stats_pair_classes_match_plain(dev, layout, p, case):
+    """Zero-heavy, all-zero, all-equal and foreign rows at an odd B; the
+    byte sums are exact: sz's s of A and B equal hll_estimate_stats of
+    those rows bit for bit."""
+    regs = _accumulated_panel(p, dev, layout, case)
+    q, b = 64 - p, 333
+    rng = np.random.default_rng(p + 17)
+    ids = torch.from_numpy(rng.integers(0, regs.shape[0], (b, 2))
+                           .astype(np.int32)).to(dev)
+    ids[::5, 1] = ids[::5, 0]
+    pa, pb = ids[:, 0].contiguous(), ids[:, 1].contiguous()
+    st, sz = _launched(_build.kernel_name("intersection_stats", layout),
+                       lambda: intersection_stats.intersection_stats(
+                           regs, pa, pb, q, layout=layout))
+    st_p, sz_p = intersection_stats.plain(regs, pa, pb, q, layout=layout)
+    assert torch.equal(st, st_p)
+    assert torch.equal(sz[..., 1], sz_p[..., 1])
+    torch.testing.assert_close(sz[..., 0], sz_p[..., 0], rtol=1e-6, atol=0)
+    est = hll_estimate.hll_estimate_stats(regs, layout=layout)
+    assert torch.equal(sz[:, 0, 0], est[pa.long(), 0])
+    assert torch.equal(sz[:, 1, 0], est[pb.long(), 0])
+    if layout == "packed":
+        assert torch.equal(sz, sz_p)
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+@pytest.mark.parametrize("p", [4, 8, 16])
+@pytest.mark.parametrize("case", ["long_set", "one_lane"])
+def test_union_estimate_long_sets_match_plain(dev, layout, p, case):
+    """One 1,024-member set among singletons and empty sets (L = 1024), or
+    a panel of one lane (L = 1), on a zero-heavy accumulated panel."""
+    regs = _accumulated_panel(p, dev, layout, "accumulated")
+    regs[0] = 0xFF if layout == "packed" else 69  # a read padding row shows
+    rng = np.random.default_rng(p + 29)
+    v, b = regs.shape[0], 77
+    lanes = 1024 if case == "long_set" else 1
+    ids = rng.integers(1, v, (b, lanes)).astype(np.int32)
+    mask = np.zeros((b, lanes), bool)
+    mask[:, 0] = rng.random(b) > 0.2
+    if case == "long_set":
+        mask[40] = True
+        mask[40, 500:520] = False  # holes inside the long set
+    ids[~mask] = 0
+    ids_t = torch.from_numpy(ids).to(dev)
+    mask_t = torch.from_numpy(mask).to(dev)
+    got = _launched(_build.kernel_name("union_estimate_stats", layout),
+                    lambda: union_estimate.union_estimate_stats(
+                        regs, ids_t, mask_t, layout=layout))
+    want = union_estimate.plain(regs, ids_t, mask_t, layout=layout)
+    assert torch.equal(got[:, 1], want[:, 1])
+    torch.testing.assert_close(got[:, 0], want[:, 0], rtol=1e-6, atol=0)
+    if layout == "packed":
+        assert torch.equal(got, want)
+    empty = torch.from_numpy(~mask.any(axis=1)).to(dev)
+    assert bool((got[empty] == float(1 << p)).all())
+    again = union_estimate.union_estimate_stats(regs, ids_t, mask_t,
+                                                layout=layout)
+    assert torch.equal(again, got)  # same bits on every launch
 
 
 @pytest.mark.parametrize("p", [4, 8, 16])
