@@ -53,10 +53,29 @@ Phases, one line each:
    (bit for bit the per-kind answers); every kernel of the path must have
    launched; then the share of the pairs that the reference's
    Hessian-overflow flag holds still;
+5s. serving, on the same graph, launch counters zeroed just before each
+   served run: a ``QueryServer`` over a fresh byte engine, 8 client
+   threads x 24 seeded requests (1/8 ``degrees``, 3/8 ``union_size`` of 8
+   sets ``{v} ∪ N(v)``, 3/8 ``intersection_size`` of 64 edge pairs, 1/8
+   ``neighborhood(3)``) with an ingest of 2^20 new edges half way as the
+   epoch barrier, every answer equal to the direct call at its epoch bit
+   for bit (accumulate, estimate, propagate, pair and set kernels
+   launched); then a ``ContinuousServer`` (``RotationPolicy(
+   every_blocks=4)``) whose writer ingests 16 blocks of 2^18 new edges,
+   flushed every 4, while 4 reader threads query: every reader answer
+   equal to the direct call at the snapshot version that served it, a
+   snapshot taken before answering as it did throughout (its check's
+   launches taken out of the phase's counts), the flushed registers
+   equal to a one-shot build, one lease clone a rotation, the first
+   snapshot's panel no longer shared;
+   rotations, shed and deadline counts, per-kind p50/p99, the lease
+   clone's time (CUDA events) against its bound and the phase's peak
+   memory printed;
 5b. packed main path, once the byte engine is freed, counters zeroed just
    before: the same steps with ``layout="packed"``, each timed, with peak
-   memory and the same launch counts; the panel equal to ``pack_rows`` of
-   the byte panel, every
+   memory and the same launch counts (then a short packed ``QueryServer``
+   run, 8 x 8 requests, answers equal to the direct calls); the panel
+   equal to ``pack_rows`` of the byte panel, every
    answer equal to the byte kernels' on the clamped panel bit for bit,
    ``pack_rows`` commuting with the propagate passes, the count of byte
    registers above 15 and of rows whose degrees differ from the byte
@@ -79,6 +98,13 @@ Phases, one line each:
 8. checkpoint: ``save`` the ADS engine under ``build/``, ``load`` it,
    registers and ``distance_histogram(6)`` bit for bit, and a further
    ingest into both engines gives the same registers;
+8s. serving, continued: one served ``distance_histogram(6)`` on the ADS
+   engine (cold), equal to the direct call, and its repeat served from a
+   snapshot with no launch and no propagate pass; then the
+   ``ContinuousServer``'s failover writer at RMAT scale 16 (the phase's
+   cost is host checkpoint I/O, not kernels): checkpoints every 4 blocks
+   under ``build/``, the writer killed at block 6, registers after
+   ``flush`` equal to the run without faults, directory removed;
 9. triangles, with launch counters zeroed just before: RMAT scale 20,
    edge factor 16, seed 0, ``engine.build`` and
    ``triangle_heavy_hitters(k=100, mode="edge")`` (finite values in
@@ -119,6 +145,11 @@ ERTL_PAIRS = 1 << 18
 T_MAX = 3
 TRI_SCALE, TRI_K = 20, 100
 ADS_T, ADS_SOURCES = 6, 32
+SERVE_CLIENTS, SERVE_REQS, SERVE_SETS, SERVE_PAIRS = 8, 24, 8, 64
+SERVE_INGEST = 1 << 20
+CONT_BLOCKS, CONT_BLOCK, CONT_READERS = 16, 1 << 18, 4
+FT_SCALE, FT_BLOCKS = 16, 12
+SERVE_WAIT = 300  # seconds any serving wait may take before the smoke fails
 DEVICE = "cuda"
 
 SOURCES = {
@@ -1441,6 +1472,474 @@ def small_triangles(np, cpu, gpu, edges, n):
         f"{recall['vertex']:.2f} (reported, not gated)")
 
 
+# ------------------------------------------------------------------ serving
+def run_threads(fn, count, timeout=SERVE_WAIT):
+    """Run ``fn(i)`` on ``count`` threads; fail on an error or a thread
+    still running after ``timeout`` seconds."""
+    import threading
+    errors = []
+
+    def body(i):
+        try:
+            fn(i)
+        except BaseException as e:  # noqa: BLE001 — reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=body, args=(i,), daemon=True)
+               for i in range(count)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=timeout)
+        if t.is_alive():
+            fail(f"a serving thread ran past {timeout} s")
+    if errors:
+        fail(f"a serving thread failed: {errors[0]!r}")
+
+
+def serving_requests(np, rng, edges, sets, clients, per_client):
+    """Seeded client requests: per client a list of (kind, argument),
+    1/8 degrees, 3/8 unions of SERVE_SETS sets from ``sets``, 3/8
+    intersections of SERVE_PAIRS edge pairs, 1/8 neighborhood(T_MAX)."""
+    mix = ["degrees"] + ["union"] * 3 + ["intersection"] * 3 + [
+        "neighborhood"]
+    out = []
+    for _ in range(clients):
+        reqs = []
+        for _ in range(per_client):
+            kind = mix[int(rng.integers(len(mix)))]
+            arg = None
+            if kind == "union":
+                arg = [sets[i] for i in rng.integers(0, len(sets),
+                                                     SERVE_SETS)]
+            elif kind == "intersection":
+                arg = edges[rng.integers(0, len(edges), SERVE_PAIRS)]
+            reqs.append((kind, arg))
+        out.append(reqs)
+    return out
+
+
+def ask(srv, kind, arg):
+    """One client call of ``kind`` through a server (or an engine)."""
+    if kind == "degrees":
+        return srv.degrees()
+    if kind == "union":
+        return srv.union_size(arg)
+    if kind == "intersection":
+        return srv.intersection_size(arg)
+    return srv.neighborhood(T_MAX)
+
+
+def direct_answers(np, eng, reqs):
+    """The direct engine answers to ``reqs`` (a flat list of (kind, arg)),
+    unions and intersections each as one batched call, sliced back."""
+    sets = [s for kind, arg in reqs if kind == "union" for s in arg]
+    pairs = [arg for kind, arg in reqs if kind == "intersection"]
+    uni = eng.union_size(sets) if sets else None
+    inter = eng.intersection_size(np.concatenate(pairs)) if pairs else None
+    deg = eng.degrees()
+    hood = eng.neighborhood(T_MAX) if any(
+        kind == "neighborhood" for kind, _ in reqs) else None
+    out, u, i = [], 0, 0
+    for kind, arg in reqs:
+        if kind == "degrees":
+            out.append(deg)
+        elif kind == "union":
+            out.append(uni[u:u + len(arg)])
+            u += len(arg)
+        elif kind == "intersection":
+            out.append(inter[i:i + len(arg)])
+            i += len(arg)
+        else:
+            out.append(hood)
+    return out
+
+
+def same_answer(np, got, want):
+    if isinstance(want, tuple):
+        return all(np.array_equal(g, w) for g, w in zip(got, want))
+    return np.array_equal(got, want)
+
+
+def kind_stats(stats):
+    """``kind: n, p50/p99 ms`` for every kind a server's stats hold."""
+    return "; ".join(
+        f"{kind} {s['requests']} requests in {s['batches']} batches, p50 "
+        f"{s['p50_ms']:.2f} ms, p99 {s['p99_ms']:.2f} ms"
+        for kind, s in stats.items()
+        if isinstance(s, dict) and "p50_ms" in s and s["requests"])
+
+
+def query_server_phase(torch, np, edges, n, sets):
+    """Serving 1: a QueryServer over a byte engine at RMAT scale SCALE,
+    SERVE_CLIENTS client threads x SERVE_REQS seeded requests, an ingest
+    of SERVE_INGEST new edges as the epoch barrier half way; every answer
+    equal, bit for bit, to the direct call at its epoch. Returns the
+    serving run's launch counts, zeroed just before."""
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.engine import plans
+    from repro_torch.kernels import _build
+    from repro_torch.serve import QueryServer
+
+    rng = np.random.default_rng(SEED + 11)
+    work = serving_requests(np, rng, edges, sets, SERVE_CLIENTS, SERVE_REQS)
+    half = SERVE_REQS // 2
+    new = rng.integers(0, n, (SERVE_INGEST, 2))
+    t0 = time.perf_counter()
+    direct = engine.build(edges, n, HLLConfig(p=P), device=DEVICE)
+    want = [direct_answers(np, direct,
+                           [r for reqs in work for r in reqs[:half]])]
+    direct.ingest(new)
+    want.append(direct_answers(np, direct,
+                               [r for reqs in work for r in reqs[half:]]))
+    del direct
+    t_direct = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    eng = engine.build(edges, n, HLLConfig(p=P), device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    got = [[None] * SERVE_REQS for _ in range(SERVE_CLIENTS)]
+    plans.reset_trace_counts()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with QueryServer(eng) as srv:
+        def clients(lo, hi):
+            def client(c):
+                for j in range(lo, hi):
+                    got[c][j] = ask(srv, *work[c][j])
+            run_threads(client, SERVE_CLIENTS)
+        clients(0, half)
+        epoch = srv.ingest(new)
+        clients(half, SERVE_REQS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        stats = srv.stats()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    flat = [[got[c][j] for c in range(SERVE_CLIENTS) for j in range(half)],
+            [got[c][j] for c in range(SERVE_CLIENTS)
+             for j in range(half, SERVE_REQS)]]
+    bad = [(e, i) for e in (0, 1) for i, (g, w) in enumerate(
+        zip(flat[e], want[e])) if not same_answer(np, g, w)]
+    if epoch != 1 or bad:
+        fail(f"serving: QueryServer answers differ from the direct calls "
+             f"at their epoch: {len(bad)} of {SERVE_CLIENTS * SERVE_REQS} "
+             f"(epoch {epoch})")
+    log(f"serving: QueryServer, byte, rmat scale {SCALE}: {SERVE_CLIENTS} "
+        f"clients x {SERVE_REQS} requests, an ingest of {SERVE_INGEST} "
+        f"edges half way (epoch 0 -> 1): {secs:.2f} s "
+        f"({stats['requests_total'] / secs:.1f} requests/s), every answer "
+        f"equal to the direct call at its epoch bit for bit (direct calls "
+        f"{t_direct:.2f} s); {kind_stats(stats)}; fused batches "
+        f"{stats['fused_batches']}; plans built {stats['plan_traces']}; "
+        f"max_memory_allocated {peak:.2f} GiB; launches {counts}")
+    missing = [k for k in ("hll_accumulate", "hll_estimate_stats",
+                           "hll_propagate", "intersection_stats",
+                           "union_estimate_stats") if counts[k] == 0]
+    if missing:
+        fail(f"serving: QueryServer never launched {missing}")
+    return counts
+
+
+def submit_continuous(srv, n, kind, arg):
+    """Submit one degrees / union / intersection request to a
+    ContinuousServer as its client methods do, and return the request:
+    after ``wait()`` its ``epoch`` is the snapshot version that served
+    it."""
+    from repro_torch.engine import plans
+    if kind == "degrees":
+        payload = ()
+    elif kind == "union":
+        payload = plans.split_sets(arg, n)
+    else:
+        arr, scalar = plans.split_pairs(arg, n)
+        payload = (arr, scalar, "mle", srv.engine._resolve_iters(None))
+    return srv._submit(kind, payload, None)
+
+
+def continuous_phase(torch, np, edges, n, sets, pairs):
+    """Serving 2: a ContinuousServer over a byte engine at RMAT scale
+    SCALE; the writer ingests CONT_BLOCKS blocks of CONT_BLOCK new edges
+    (RotationPolicy(every_blocks=4), the source flushing every 4 blocks,
+    so 4 rotations) while CONT_READERS reader threads
+    serve degrees / unions / intersections. Every served answer equals
+    the direct call at the snapshot version that served it; a snapshot
+    taken before keeps its answers throughout; after flush the served
+    registers equal a one-shot build; one lease clone a rotation. Returns
+    the serving run's launch counts, zeroed just before, less the
+    launches of the snapshot check made while the writer works."""
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.engine import plans
+    from repro_torch.kernels import _build
+    from repro_torch.serve import ContinuousServer, RotationPolicy
+    import threading
+
+    rng = np.random.default_rng(SEED + 12)
+    new = rng.integers(0, n, (CONT_BLOCKS * CONT_BLOCK, 2))
+    blocks = np.split(new, CONT_BLOCKS)
+    eng = engine.build(edges, n, HLLConfig(p=P), device=DEVICE)
+    v0 = eng.version
+    first = eng.snapshot()
+    probe = (sets[:64], pairs[:1024])
+
+    def answers(e):
+        return (e.degrees(), e.union_size(probe[0]),
+                e.intersection_size(probe[1]))
+
+    _build.reset_launch_counts()
+    want_first = answers(first)
+    torch.cuda.synchronize()
+    probe_counts = _build.launch_counts()  # subtracted for ``mid`` below
+    torch.cuda.reset_peak_memory_stats()
+    plans.reset_event_counts()
+    _build.reset_launch_counts()
+    stop = threading.Event()
+    seen = [[] for _ in range(CONT_READERS)]  # (kind, arg, epoch, answer)
+    t0 = time.perf_counter()
+    with ContinuousServer(eng, rotation=RotationPolicy(every_blocks=4)) \
+            as srv:
+        def reader(i):
+            r = np.random.default_rng(SEED + 100 + i)
+            while not stop.is_set():
+                kind = ("degrees", "union", "intersection")[i % 3]
+                arg = None
+                if kind == "union":
+                    arg = [sets[k] for k in r.integers(0, len(sets),
+                                                       SERVE_SETS)]
+                elif kind == "intersection":
+                    arg = edges[r.integers(0, len(edges), SERVE_PAIRS)]
+                req = submit_continuous(srv, n, kind, arg)
+                if not req.done.wait(timeout=SERVE_WAIT):
+                    raise TimeoutError(f"{kind} not served in {SERVE_WAIT} s")
+                seen[i].append((kind, arg, req.epoch, req.wait()))
+
+        readers = threading.Thread(
+            target=run_threads, args=(reader, CONT_READERS), daemon=True)
+        readers.start()
+        for g in range(0, CONT_BLOCKS, 4):  # a source that flushes every 4
+            for blk in blocks[g:g + 4]:
+                srv.ingest(blk)
+            if g == 4:
+                mid = answers(first)  # while the writer works
+            srv.flush(timeout=SERVE_WAIT)
+        secs = time.perf_counter() - t0
+        stop.set()
+        readers.join(timeout=SERVE_WAIT)
+        if readers.is_alive():
+            fail("serving: ContinuousServer readers did not stop")
+        torch.cuda.synchronize()
+        counts = {k: c - probe_counts.get(k, 0)
+                  for k, c in _build.launch_counts().items()}
+        stats = srv.stats()
+        served_regs = srv._slot.get().regs
+        writer = srv.engine
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    clones = plans.event_counts().get("lease_clone", 0)
+    rotations = stats["snapshot"]["rotations"]
+    clone_ms = cuda_ms(torch, lambda: writer.regs.clone(), 10)
+    after = answers(first)
+    # every reader answer against the direct call at its version: one
+    # engine steps through the versions, ingesting the blocks as the
+    # writer did, and answers each version's requests in one batch
+    by_epoch = {}
+    for got in seen:
+        for kind, arg, epoch, answer in got:
+            by_epoch.setdefault(epoch, []).append((kind, arg, answer))
+    step = engine.build(edges, n, HLLConfig(p=P), device=DEVICE)
+    wrong, applied = [], 0
+    for epoch in sorted(by_epoch):
+        if not v0 <= epoch <= v0 + CONT_BLOCKS:
+            fail(f"serving: ContinuousServer served version {epoch}, "
+                 f"outside [{v0}, {v0 + CONT_BLOCKS}]")
+        for blk in blocks[applied:epoch - v0]:
+            step.ingest(blk)
+        applied = max(applied, epoch - v0)
+        reqs = by_epoch[epoch]
+        want = direct_answers(np, step, [(k, a) for k, a, _ in reqs])
+        wrong += [(epoch, k) for (k, _, g), w in zip(reqs, want)
+                  if not same_answer(np, g, w)]
+    del step
+    n_seen = sum(len(got) for got in seen)
+    once = engine.build(np.concatenate([edges, new]), n, HLLConfig(p=P),
+                        device=DEVICE)
+    checks = {
+        "every reader answer equal to the direct call at its version": (
+            n_seen > 0 and not wrong),
+        "snapshot answers during the stream": all(
+            np.array_equal(a, b) for a, b in zip(mid, want_first)),
+        "snapshot answers after the stream": all(
+            np.array_equal(a, b) for a, b in zip(after, want_first)),
+        "served registers equal a one-shot build": torch.equal(
+            served_regs, once.regs),
+        "one lease clone a rotation": clones == rotations >= 1,
+        "the first snapshot's panel no longer shared": (
+            first.regs.untyped_storage().data_ptr()
+            != writer.regs.untyped_storage().data_ptr()),
+    }
+    del once
+    log(f"serving: ContinuousServer, byte, rmat scale {SCALE}: "
+        f"{CONT_BLOCKS} blocks of {CONT_BLOCK} edges in {secs:.2f} s while "
+        f"{CONT_READERS} readers served {n_seen} requests at versions "
+        f"{sorted(by_epoch)} ({len(wrong)} differ from the direct call); "
+        f"rotations "
+        f"{rotations}, lease clones {clones}, shed {stats['shed_total']}, "
+        f"deadline misses {stats['deadline_misses']}; {kind_stats(stats)}; "
+        f"lease clone of the {writer.regs.numel() / 2**30:.2f} GiB panel "
+        f"{clone_ms:.4f} ms (CUDA events; bound "
+        f"{bound_ms(2 * writer.regs.numel()):.4f} ms, bytes); "
+        f"max_memory_allocated {peak:.2f} GiB; launches {counts}")
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail(f"serving: ContinuousServer: {bad}")
+    log(f"serving: ContinuousServer: {', '.join(checks)}: all hold")
+    missing = [k for k in ("hll_accumulate", "hll_estimate_stats",
+                           "intersection_stats", "union_estimate_stats")
+               if counts[k] == 0]
+    if missing:
+        fail(f"serving: ContinuousServer never launched {missing}")
+    return counts
+
+
+def packed_serving_phase(torch, np, eng, edges, sets):
+    """Serving 3: a short QueryServer run (SERVE_CLIENTS x 8 requests) on
+    the packed scale-SCALE engine, every answer equal to the direct call.
+    Returns the serving run's launch counts, zeroed just before."""
+    from repro_torch.kernels import _build
+    from repro_torch.serve import QueryServer
+
+    work = serving_requests(np, np.random.default_rng(SEED + 13), edges,
+                            sets, SERVE_CLIENTS, 8)
+    want = direct_answers(np, eng, [r for reqs in work for r in reqs])
+    got = [[None] * 8 for _ in range(SERVE_CLIENTS)]
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    with QueryServer(eng) as srv:
+        def client(c):
+            for j in range(8):
+                got[c][j] = ask(srv, *work[c][j])
+        run_threads(client, SERVE_CLIENTS)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = _build.launch_counts()
+        stats = srv.stats()
+    flat = [g for row in got for g in row]
+    bad = sum(not same_answer(np, g, w) for g, w in zip(flat, want))
+    if bad:
+        fail(f"serving: packed QueryServer: {bad} answers differ from the "
+             f"direct calls")
+    log(f"serving: QueryServer, packed: {SERVE_CLIENTS} clients x 8 "
+        f"requests in {secs:.2f} s, every answer equal to the direct call "
+        f"bit for bit; {kind_stats(stats)}; launches {counts}")
+    missing = [k + "_packed" for k in ("hll_estimate_stats",
+                                       "intersection_stats",
+                                       "union_estimate_stats")
+               if counts[k + "_packed"] == 0]
+    if missing:
+        fail(f"serving: packed QueryServer never launched {missing}")
+    return counts
+
+
+def ads_serving_phase(torch, np, ads_eng):
+    """Serving 4: one served distance_histogram(ADS_T) on the scale-SCALE
+    ADS engine (cold caches), equal to the direct call on a snapshot; its
+    repeat served from a snapshot runs no kernel and no propagate pass.
+    Returns the served call's launch counts, zeroed just before."""
+    from repro_torch.engine import plans
+    from repro_torch.kernels import _build
+    from repro_torch.serve import QueryServer
+
+    view = ads_eng.snapshot()  # computes its own panels: the direct call
+    want, want_glob = view.distance_histogram(ADS_T)
+    del view
+    torch.cuda.empty_cache()
+    _build.reset_launch_counts()
+    with QueryServer(ads_eng) as srv:
+        (hist, glob), secs = timed(torch,
+                                   lambda: srv.distance_histogram(ADS_T))
+        counts = _build.launch_counts()
+    snap = ads_eng.snapshot()
+    plans.reset_event_counts()
+    _build.reset_launch_counts()
+    with QueryServer(snap) as srv:
+        (again, again_glob), secs2 = timed(
+            torch, lambda: srv.distance_histogram(ADS_T))
+        repeat = (_build.launch_counts(), plans.event_counts())
+    if not (np.array_equal(hist, want) and np.array_equal(glob, want_glob)
+            and np.array_equal(again, want)
+            and np.array_equal(again_glob, want_glob)):
+        fail("serving: served distance_histogram differs from the direct "
+             "call")
+    if any(repeat[0].values()) or repeat[1].get("propagate_pass", 0):
+        fail(f"serving: the repeat on a snapshot ran work: {repeat}")
+    log(f"serving: ADS: served distance_histogram({ADS_T}) {secs:.3f} s "
+        f"(cold), equal to the direct call bit for bit, launches {counts}; "
+        f"repeated on a snapshot {secs2:.4f} s: 0 kernel launches, 0 "
+        f"propagate passes")
+    missing = [k for k in ("hip_delta_rows", "hll_propagate",
+                           "hll_estimate_stats") if counts[k] == 0]
+    if missing:
+        fail(f"serving: served distance_histogram never launched {missing}")
+    return counts
+
+
+def failover_phase(torch, np):
+    """Serving 5: the ContinuousServer's failover writer at RMAT scale
+    FT_SCALE (its cost is host checkpoint I/O, not kernels): checkpoints
+    every 4 blocks under build/, the writer killed at block 6, registers
+    after flush equal the same run without faults; directory removed.
+    Returns the launch counts of both runs, zeroed just before."""
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.graph import generators
+    from repro_torch.kernels import _build
+    from repro_torch.runtime.faults import FaultInjector, KillHost
+    from repro_torch.runtime.ft import FTConfig
+    from repro_torch.serve import ContinuousServer
+
+    edges = generators.rmat(FT_SCALE, EDGE_FACTOR, seed=SEED)
+    n = 1 << FT_SCALE
+    blocks = np.array_split(edges, FT_BLOCKS)
+    path = ROOT / "build" / "chip_smoke_ft"
+    shutil.rmtree(path, ignore_errors=True)
+
+    def run(ft, faults):
+        with ContinuousServer(engine.open(n, HLLConfig(p=P), device=DEVICE),
+                              ft=ft, faults=faults) as srv:
+            for blk in blocks:
+                srv.ingest(blk)
+            srv.flush(timeout=SERVE_WAIT)
+            out = (srv.engine.regs.clone(), srv.engine.m,
+                   srv.stats()["runtime"])
+        return out
+
+    _build.reset_launch_counts()
+    try:
+        inj = FaultInjector(faults=(KillHost(host=0, at_block=6),))
+        (regs, m, rt), secs = timed(torch, lambda: run(
+            FTConfig(ckpt_dir=str(path), ckpt_every=4), inj))
+        (want, want_m, _), secs0 = timed(torch, lambda: run(None, None))
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    counts = _build.launch_counts()
+    if not (torch.equal(regs, want) and m == want_m == len(edges)
+            and rt["recoveries"] == 1 and len(inj.fired) == 1):
+        fail(f"serving: failover writer: registers or edge count differ "
+             f"from the run without faults ({rt})")
+    log(f"serving: failover writer, rmat scale {FT_SCALE} (cut from "
+        f"{SCALE}: the phase's cost is host checkpoint I/O, not kernels): "
+        f"{FT_BLOCKS} blocks, checkpoints every 4, writer killed at block "
+        f"6: recoveries {rt['recoveries']}, last recovery "
+        f"{rt['last_recovery_ms']:.1f} ms, checkpoints written "
+        f"{rt['checkpoints_written']}; registers and m={m} equal the run "
+        f"without faults bit for bit ({secs:.2f} s against {secs0:.2f} s); "
+        f"directory removed; launches {counts}")
+    if counts["hll_accumulate"] == 0:
+        fail("serving: the failover writer never launched hll_accumulate")
+    return counts
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -1501,15 +2000,28 @@ def main() -> int:
     del skew
     counts, byte_deg = main_path(torch, np, edges, n, pairs, verts, sets,
                                  panel)
+    t_serve = time.perf_counter()
+    phases = [counts, query_server_phase(torch, np, edges, n, sets),
+              continuous_phase(torch, np, edges, n, sets, pairs)]
+    t_serve = time.perf_counter() - t_serve
+    torch.cuda.empty_cache()
     packed_eng, packed_counts = packed_path(
         torch, np, edges, n, pairs, verts, sets, panel, packed_panel,
         byte_deg)
-    phases = [counts, packed_counts,
-              packed_durability(torch, np, edges, n, packed_eng)]
+    t0 = time.perf_counter()
+    phases += [packed_counts,
+               packed_serving_phase(torch, np, packed_eng, edges, sets)]
+    t_serve += time.perf_counter() - t0
+    phases.append(packed_durability(torch, np, edges, n, packed_eng))
     del panel, packed_panel, packed_eng
     ads_eng, ads_counts, hist = ads_path(torch, np, edges, n)
     phases += [ads_counts, merge_phase(torch, np, edges, n, ads_eng),
                checkpoint_phase(torch, np, n, ads_eng, hist)]
+    t0 = time.perf_counter()
+    phases += [ads_serving_phase(torch, np, ads_eng),
+               failover_phase(torch, np)]
+    t_serve += time.perf_counter() - t0
+    log(f"serving: the five serving phases took {t_serve:.1f} s")
     del edges, ads_eng
     phases.append(triangle_path(torch, np))
     phases.append(small_reference(torch, np))

@@ -12,8 +12,9 @@ The tree is a flat dict of numpy arrays; its keys are the leaf keys the
 JAX package derives from a dict's paths (``regs``, ``edges``,
 ``replica_ids``). The JAX package stores ``bfloat16`` leaves as a raw
 integer view and records the logical dtype; the port has no
-``ml_dtypes`` and refuses such a leaf with ``ValueError``. The
-background writer (``AsyncCheckpointer``) is not ported yet (ROADMAP).
+``ml_dtypes`` and refuses such a leaf with ``ValueError``.
+:class:`AsyncCheckpointer` writes steps on a background thread, from a
+host copy of every leaf taken before the thread starts.
 
 The sketch family guard lives here too: register bytes are
 family-portable, their meaning is not, so restoring or merging across
@@ -24,12 +25,14 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 
 import numpy as np
+import torch
 
 __all__ = ["save_checkpoint", "restore_checkpoint", "read_manifest",
-           "latest_step", "FamilyMismatch", "manifest_family",
-           "require_family"]
+           "latest_step", "AsyncCheckpointer", "FamilyMismatch",
+           "manifest_family", "require_family"]
 
 
 class FamilyMismatch(ValueError):
@@ -125,3 +128,56 @@ def restore_checkpoint(ckpt_dir: str, step: int) -> dict:
                 f"ml_dtypes, which the port does not use")
         out[key] = arr
     return out
+
+
+def _host_copy(leaf) -> np.ndarray:
+    """A host array that owns its bytes: a tensor is copied off its device
+    (or out of its CPU storage, which the writer may go on mutating); a
+    numpy leaf is kept as it is."""
+    if isinstance(leaf, torch.Tensor):
+        return leaf.detach().to("cpu", copy=True).numpy()
+    return np.asarray(leaf)
+
+
+class AsyncCheckpointer:
+    """Background-thread checkpoint writer (overlaps checkpoint I/O with
+    the caller's work).
+
+    :meth:`save` waits for the previous write, takes a host copy of every
+    leaf on the calling thread, then writes the step on a new thread and
+    keeps the newest ``keep`` steps. :meth:`wait` joins the write in
+    flight.
+    """
+
+    def __init__(self, ckpt_dir: str, keep: int = 3):
+        self.ckpt_dir = ckpt_dir
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+
+    def wait(self) -> None:
+        """Block until the write in flight (if any) has finished."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+
+    def save(self, step: int, tree: dict, extra: dict | None = None) -> None:
+        """Write ``tree`` (``{key: array or tensor}``) as step_<step> in the
+        background; ``extra`` goes to the manifest as in
+        :func:`save_checkpoint`."""
+        self.wait()
+        host_tree = {k: _host_copy(v) for k, v in tree.items()}
+
+        def work():
+            save_checkpoint(self.ckpt_dir, step, host_tree, extra=extra)
+            self._gc()
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def _gc(self) -> None:
+        steps = sorted(
+            int(n.split("_")[1]) for n in os.listdir(self.ckpt_dir)
+            if n.startswith("step_"))
+        for s in steps[:-self.keep]:
+            shutil.rmtree(os.path.join(self.ckpt_dir, f"step_{s}"),
+                          ignore_errors=True)

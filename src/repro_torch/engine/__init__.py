@@ -21,6 +21,10 @@
     eng.save(path)                                 # JAX package's format
     back = engine.load(path)
 
+    snap = eng.snapshot()                          # read-only, O(1)
+    eng.ingest(block)                              # snap keeps its answers
+    eng.replicate(hot_ids)                         # hot-vertex replica set
+
     small = engine.build(edges, n, HLLConfig(p=8), layout="packed")
     small.save(path)                               # half the register bytes
     as_byte = engine.load(path, layout="byte")     # exact unpack
@@ -31,10 +35,11 @@ Entry points run on the card unless the caller asks for the CPU
 carry on on the CPU. Both register layouts are ported: "byte" (one
 register a byte) and, for HLL, "packed" (two 4-bit registers a byte,
 half the device bytes; registers saturate at 15, ``kernels.packing``).
-Only the local backend is ported so far (snapshots, serving and the
-sharded backend are not; see ROADMAP.md); ``engine.convert`` carries a
-JAX engine's state across as numpy arrays, and checkpoints cross between
-the packages as files, in either layout.
+Only the local backend is ported so far (the sharded backend is not;
+see ROADMAP.md); ``repro_torch.serve`` serves an engine to concurrent
+clients. ``engine.convert`` carries a JAX engine's state across as numpy
+arrays, and checkpoints cross between the packages as files, in either
+layout.
 """
 from __future__ import annotations
 
@@ -121,8 +126,8 @@ def load(path: str, *, step: int | None = None, layout: str | None = None,
     backend saved them: the register rows are canonical, so a sharded
     save loads onto one device. The manifest's ``impl`` and ``shards``
     say how the JAX package ran and are not needed here. A saved
-    ``replica_ids`` leaf is kept on the engine (``replica_ids``) and
-    written back by the next ``save``; no replica panel is built.
+    ``replica_ids`` leaf is installed through ``replicate`` and written
+    back by the next ``save``.
 
     Args:
       path: the checkpoint directory (holding ``step_<k>``).
@@ -165,5 +170,5 @@ def load(path: str, *, step: int | None = None, layout: str | None = None,
     eng = LocalEngine.from_regs(regs, int(extra["n"]), cfg, edges=edges,
                                 layout=layout, device=device)
     if "replica_ids" in tree:
-        eng.replica_ids = np.asarray(tree["replica_ids"], dtype=np.int64)
+        eng.replicate(np.asarray(tree["replica_ids"], dtype=np.int64))
     return eng

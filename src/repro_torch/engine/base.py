@@ -28,8 +28,23 @@ queries answer from it:
 (Algorithm 6 MERGE; nibble-wise on packed panels, converting ``other``'s
 rows when its layout differs), and ``save(path)`` writes a checkpoint in
 the JAX package's format that ``repro_torch.engine.load`` and the JAX package's
-``repro.engine.load`` both restore. Not ported yet, and absent rather
-than stubbed: snapshots and the replica panel (ROADMAP).
+``repro.engine.load`` both restore.
+
+``snapshot()`` returns a read-only view at the current version in O(1):
+it shares the panel, the edge list and the cached D^t panels. Because
+ingest and merge write the panel in place (the JAX engine's panels are
+immutable arrays), the panel is *leased* while a snapshot of it is alive:
+the writer's next in-place write first clones it, once per
+snapshot-then-write cycle (``_release_lease``), so a snapshot answers
+bit for bit at its version while the writer moves on. ``replicate(ids)``
+installs a hot-vertex replica set, carried by snapshots and checkpoints;
+on one device its rows are the owner rows themselves.
+
+Batched union, intersection and mixed queries resolve their plan through
+the shared :class:`~repro_torch.engine.plans.PlanCache`, which counts
+the first build of every key (``plans.trace_counts``); every other query
+calls its kernel directly. Each Algorithm 2 pass and each lease clone is
+counted as an event (``plans.event_counts``).
 
 Query kinds the engine's sketch family does not serve raise
 :class:`UnsupportedQuery` up front. Ids are validated on the host before
@@ -38,7 +53,10 @@ anything reaches the device.
 from __future__ import annotations
 
 import abc
+import copy
 import operator
+import threading
+import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -50,12 +68,19 @@ from repro_torch.kernels import packing, registry
 #: the ``format`` a checkpoint of an engine records (the JAX package's)
 ENGINE_FORMAT = "degreesketch-engine-v1"
 
-__all__ = ["SketchEngine", "ENGINE_FORMAT", "UnsupportedQuery", "SCHEDULES",
-           "resolve_device", "validate_t_max", "pad_vertices"]
+__all__ = ["SketchEngine", "ENGINE_FORMAT", "SnapshotFrozen",
+           "UnsupportedQuery", "SCHEDULES", "resolve_device",
+           "validate_t_max", "pad_vertices"]
 
 #: Algorithm 2 schedules every backend accepts; the sharded backend (not
 #: ported yet) picks its dataflow by them, a single-device one ignores them
 SCHEDULES = ("auto", "ring", "ring_overlap", "allgather")
+
+
+class SnapshotFrozen(RuntimeError):
+    """Raised when a mutating call (``ingest``, ``merge``, ``replicate``)
+    hits a read-only :meth:`SketchEngine.snapshot` view; mutations go to
+    the writer engine the snapshot was taken from."""
 
 
 class UnsupportedQuery(ValueError):
@@ -160,12 +185,14 @@ class SketchEngine(abc.ABC):
         self._version = 0
         self._prop_routing: tuple[torch.Tensor, ...] | None = None
         self._panel_set: _PanelSet | None = None
+        self._replica_ids: np.ndarray | None = None  # sorted, or None
+        self._plan_cache = plans.global_cache()
         #: Algorithm 2 passes run by this engine (the panel cache's proof)
         self.propagate_passes = 0
-        #: hot-vertex replica ids (int64) a loaded checkpoint carried, kept
-        #: as plain data and written back by :meth:`save`; the port builds
-        #: no replica panel yet (ROADMAP)
-        self.replica_ids: np.ndarray | None = None
+        self._frozen = False  # True only on snapshot() views
+        # live snapshots that share the current panel (the lease)
+        self._lessees: weakref.WeakSet = weakref.WeakSet()
+        self._snap_lock = threading.RLock()  # guards lazy query caches
 
     # ------------------------------------------------------------- state
     @property
@@ -184,12 +211,31 @@ class SketchEngine(abc.ABC):
         return self._version
 
     @property
+    def frozen(self) -> bool:
+        """True iff this engine is a read-only :meth:`snapshot` view."""
+        return self._frozen
+
+    @property
+    def regs_leased(self) -> bool:
+        """True while a live snapshot shares the current register panel;
+        the next ingest or merge then clones the panel first."""
+        return len(self._lessees) > 0
+
+    @property
+    def plan_cache(self) -> plans.PlanCache:
+        """The (shared, LRU-bounded) plan cache this engine resolves in."""
+        return self._plan_cache
+
+    @property
     def regs(self) -> torch.Tensor:
         """The accumulated register table uint8[n_pad, w] (w = r, or r/2 on
         the packed layout).
 
-        Ingest updates this tensor in place (the JAX engine donates it),
-        so a handle taken before an ``ingest`` sees the new registers.
+        Ingest and merge update the panel in place while no snapshot of
+        it is alive, so a handle taken before them sees the new registers
+        then. While a snapshot shares the panel, they first clone it and
+        write the clone: the handle (like the snapshot) keeps the old
+        registers. Compare :attr:`version` rather than holding a handle.
         """
         return self._regs
 
@@ -232,7 +278,9 @@ class SketchEngine(abc.ABC):
         orientations at once, with no padding. Register max is
         commutative and idempotent, so any blocking of the same edges
         gives a byte-identical panel. Bumps :attr:`version`. Returns self.
+        Raises :class:`SnapshotFrozen` on a snapshot view.
         """
+        self._check_mutable("ingest")
         raw = np.asarray(edge_block)
         if raw.ndim != 2 or raw.shape[1] != 2:
             raise ValueError(
@@ -240,6 +288,7 @@ class SketchEngine(abc.ABC):
         if raw.shape[0] == 0:
             return self
         block = _check_edge_ids(raw, self.n, "edge block")
+        self._release_lease()  # never write a panel a snapshot still reads
         for s in range(0, len(block), self.INGEST_BLOCK):
             self._accumulate_block(block[s:s + self.INGEST_BLOCK])
         self._version += 1
@@ -276,8 +325,10 @@ class SketchEngine(abc.ABC):
         nibble by nibble on the packed layout. If both engines track
         edges the lists concatenate; if either does not, the merged
         engine stops tracking. Bumps :attr:`version`; ``other`` is left
-        untouched. Returns self.
+        untouched, and so is every snapshot of either engine. Returns
+        self. Raises :class:`SnapshotFrozen` on a snapshot view.
         """
+        self._check_mutable("merge")
         if not isinstance(other, SketchEngine):
             raise TypeError(f"can only merge SketchEngine, got {type(other)}")
         if other.family.name != self.family.name:
@@ -294,9 +345,12 @@ class SketchEngine(abc.ABC):
             raise ValueError(
                 f"merge requires identical vertex universe: n={self.n} vs "
                 f"n={other.n}")
-        head = self._regs[: self.n]
+        # ``other``'s rows are read by this call: a later in-place ingest
+        # into ``other`` cannot reach them
         rows = packing.to_layout(other.regs[: self.n].to(self.device),
                                  other.layout, self.layout)
+        self._release_lease()  # the merge writes the panel in place
+        head = self._regs[: self.n]
         if self.layout == "packed":
             head.copy_(packing.merge_rows(head, rows, self.layout))
         else:
@@ -309,7 +363,120 @@ class SketchEngine(abc.ABC):
         self._invalidate_caches()
         return self
 
+    # ---------------------------------------------------------- replication
+    @property
+    def replicated_ids(self) -> np.ndarray | None:
+        """The installed hot-vertex replica set (sorted int64), or ``None``.
+
+        Set by :meth:`replicate` (directly, by a serving placement
+        decision, or by ``load`` restoring a checkpoint that carried a
+        replica set).
+        """
+        ids = self._replica_ids
+        return None if ids is None else ids.copy()
+
+    def replicate(self, vertex_ids) -> "SketchEngine":
+        """Install (or clear) the hot-vertex replica set.
+
+        On one device a replica row would be a byte copy of its owner row,
+        so the queries read the owner rows: answers are bit-identical
+        with or without replicas, and neither a replica panel nor a
+        per-query concatenation of it is paid. The set itself is kept:
+        serving placement decisions, snapshots and checkpoints carry it.
+        Gathering and remapping replica rows belongs to a sharded backend
+        (not ported yet).
+
+        Args:
+          vertex_ids: integer vertex ids in [0, n); duplicates collapse.
+            An empty array clears replication.
+
+        Returns self. Raises :class:`SnapshotFrozen` on a snapshot view.
+        """
+        self._check_mutable("replicate")
+        raw = np.asarray(vertex_ids)
+        plans.require_integer_ids(raw, "replicate vertex ids")
+        ids = np.unique(raw.astype(np.int64).ravel())
+        if len(ids) and (ids[0] < 0 or ids[-1] >= self.n):
+            raise ValueError(
+                f"replicate got vertex ids [{ids[0]}, {ids[-1]}] outside "
+                f"the engine's universe [0, {self.n})")
+        self._replica_ids = ids if len(ids) else None
+        return self
+
+    # ----------------------------------------------------------- snapshots
+    def snapshot(self) -> "SketchEngine":
+        """A read-only view of this engine at its current version, in O(1).
+
+        The view (same class) answers every query bit-identically to this
+        engine now, and keeps doing so while this engine ingests and
+        merges: it shares the register panel, the consolidated edge list
+        (concatenation always allocates, so the array is stable), the
+        kernel set, the plan cache, the propagate routing and the D^t
+        panels and HIP curve rows cached at this version, so a served
+        ``neighborhood`` on it reruns no propagate pass.
+
+        The panel is leased to the view: this engine's next ingest or
+        merge clones it first (:meth:`_release_lease`), once per
+        snapshot-then-write cycle, on the writer's path, never a reader's.
+        Snapshots at one version share one panel. Mutating calls on the
+        view raise :class:`SnapshotFrozen`.
+        """
+        edges = self.edges  # consolidate chunks into one stable array
+        snap = copy.copy(self)
+        snap._edges0 = edges
+        snap._edge_chunks = []      # never share the writer's chunk list
+        snap._frozen = True
+        snap._lessees = weakref.WeakSet()
+        snap._snap_lock = threading.RLock()
+        ps = self._panel_set
+        if ps is not None and ps.version == self._version:
+            snap._panel_set = _PanelSet(
+                version=ps.version, panels=list(ps.panels),
+                aux={k: list(v) for k, v in ps.aux.items()})
+        else:
+            snap._panel_set = None
+        self._lessees.add(snap)
+        return snap
+
+    def _check_mutable(self, what: str) -> None:
+        if self._frozen:
+            raise SnapshotFrozen(
+                f"{what} on a read-only snapshot (version {self._version}); "
+                f"ingest into the writer engine it was taken from")
+
+    def _release_lease(self) -> None:
+        """Clone the register panel if a live snapshot shares it.
+
+        Called before every in-place write of the panel (accumulate and
+        merge); a no-op while no snapshot of the current panel is alive.
+        The clone moves the panel's bytes once and holds a second panel
+        for as long as the snapshot lives; each clone is counted as a
+        ``"lease_clone"`` event.
+        """
+        if self._lessees:
+            self._regs = self._regs.clone()
+            self._lessees = weakref.WeakSet()
+            plans.record_event("lease_clone")
+
+    # ----------------------------------------------------- plan resolution
+    def _plan(self, query: str, bucket: tuple = (), extra: tuple = (),
+              builder=None):
+        """Resolve a query plan through the shared plan cache.
+
+        The key is the JAX package's ``(query, bucket, cfg, backend,
+        layout, extra, family)``: engines with identical coordinates
+        share plans, and a plan never closes over one engine's state.
+        """
+        key = plans.PlanKey(query=query, bucket=tuple(bucket), cfg=self.cfg,
+                            backend=self.backend, layout=self.layout,
+                            extra=tuple(extra), family=self.kernels.family)
+        return self._plan_cache.get(key, builder)
+
     # ------------------------------------------------------------ queries
+    # A replica row would be a byte copy of its owner row, so the gathers
+    # below read the owner rows whether or not a replica set is installed:
+    # on one device that gives bit-identical answers without concatenating
+    # the panel and the replica rows on every query, as the JAX plans do.
     def degrees(self) -> np.ndarray:
         """d̃(x) for every vertex x < n, float32[n]."""
         est = self.kernels.estimate_rows(self._regs, self.cfg)
@@ -337,12 +504,15 @@ class SketchEngine(abc.ABC):
 
     def _union_presplit(self, sets: list[np.ndarray]) -> np.ndarray:
         """Batched union over parsed, validated id sets: one launch of the
-        fused union kernel over the padded ``(B, L)`` panel."""
+        fused union kernel over the padded ``(B, L)`` panel. The serving
+        path calls it with a coalesced batch validated on client
+        threads."""
+        self._require_kind("union")
         ids, mask = plans.pad_sets(sets)
-        est = self.kernels.union_estimate(
-            self._regs, torch.from_numpy(ids).to(self.device),
-            torch.from_numpy(mask).to(self.device), self.cfg)
-        return est.cpu().numpy()[: len(sets)]
+        fn = self._plan("union", bucket=ids.shape,
+                        builder=lambda: plans.build_union_plan(self.cfg,
+                                                               self.kernels))
+        return fn(self._regs, ids, mask).cpu().numpy()[: len(sets)]
 
     def intersection_size(self, pairs, *, method: str = "mle",
                           iters: int | None = None):
@@ -359,23 +529,28 @@ class SketchEngine(abc.ABC):
         out = self._intersection_presplit(arr, method, iters)
         return float(out[0]) if scalar else out
 
+    def _resolve_iters(self, iters: int | None) -> int | None:
+        """``None`` resolves to the family's Newton-iteration default."""
+        return self.family.default_iters if iters is None else iters
+
     def _pair_iters(self, method: str, iters: int | None) -> int:
         """Validate the pair estimator and return its Newton iterations
         (``None`` takes the family's default)."""
         if method not in ("mle", "ie"):
             raise ValueError(f"method must be 'mle' or 'ie', got {method!r}")
-        return self.family.default_iters if iters is None else iters
+        return self._resolve_iters(iters)
 
     def _intersection_presplit(self, arr: np.ndarray, method: str,
                                iters: int) -> np.ndarray:
-        """Batched intersection over parsed, validated (B, 2) pairs."""
+        """Batched intersection over parsed, validated (B, 2) pairs (the
+        serving path's entry, like :meth:`_union_presplit`)."""
+        self._require_kind("intersection")
         ids, _ = plans.pad_pairs(arr)  # padding pairs (0, 0) sort last
-        ids_t = torch.from_numpy(ids).to(self.device)
-        stats, sz = self.kernels.intersection_stats(self._regs, ids_t,
-                                                    self.cfg)
-        est = self.family.estimate_from_pair_stats(stats, sz, self.cfg,
-                                                   method, iters)
-        return est.cpu().numpy()[: arr.shape[0]]
+        fn = self._plan(
+            "intersection", bucket=(ids.shape[0],), extra=(method, iters),
+            builder=lambda: plans.build_intersection_plan(
+                self.cfg, self.kernels, method, iters))
+        return fn(self._regs, ids).cpu().numpy()[: arr.shape[0]]
 
     def query_batch(self, *, vertex_sets=None, pairs=None,
                     degrees: bool = False, method: str = "mle",
@@ -413,15 +588,46 @@ class SketchEngine(abc.ABC):
                               method: str, iters: int) -> dict:
         """Mixed-kind batch over parsed inputs: ``sets`` a list of
         validated id arrays or ``None``, ``arr`` validated (B, 2) pairs or
-        ``None``; empty inputs are skipped."""
-        out = {}
-        if want_degrees:
-            out["degrees"] = self.degrees()
+        ``None``; empty inputs are skipped. One kind runs its own plan;
+        two or more resolve one ``mixed`` plan keyed by the combined
+        buckets, the kinds and the estimator (the serving path's fused
+        segment)."""
         if sets:
-            out["union"] = self._union_presplit(sets)
-        if arr is not None and len(arr):
-            out["intersection"] = self._intersection_presplit(arr, method,
-                                                              iters)
+            self._require_kind("union")
+        has_pairs = arr is not None and len(arr) > 0
+        if has_pairs:
+            self._require_kind("intersection")
+        kinds = tuple(k for k, want in (("degrees", want_degrees),
+                                        ("union", bool(sets)),
+                                        ("intersection", has_pairs)) if want)
+        if len(kinds) < 2:  # nothing to fuse: the per-kind plans
+            out = {}
+            if want_degrees:
+                out["degrees"] = self.degrees()
+            if sets:
+                out["union"] = self._union_presplit(sets)
+            if has_pairs:
+                out["intersection"] = self._intersection_presplit(
+                    arr, method, iters)
+            return out
+        u_ids, u_mask = (plans.pad_sets(sets) if sets else
+                         (np.zeros((1, 1), np.int32), np.zeros((1, 1), bool)))
+        p_ids = (plans.pad_pairs(arr)[0] if has_pairs
+                 else np.zeros((1, 2), np.int32))
+        fn = self._plan(
+            "mixed", bucket=(u_ids.shape, p_ids.shape[0]),
+            extra=(kinds, method, iters),
+            builder=lambda: plans.build_mixed_plan(self.cfg, self.kernels,
+                                                   kinds, method, iters))
+        raw = fn(self._regs, u_ids, u_mask, p_ids)
+        out = {}
+        if "degrees" in raw:
+            out["degrees"] = raw["degrees"].cpu().numpy()[: self.n]
+        if "union" in raw:
+            out["union"] = raw["union"].cpu().numpy()[: len(sets)]
+        if "intersection" in raw:
+            out["intersection"] = raw["intersection"].cpu().numpy()[
+                : arr.shape[0]]
         return out
 
     # ------------------------------------------------- t-hop panel cache
@@ -434,14 +640,20 @@ class SketchEngine(abc.ABC):
         return len(ps.panels)
 
     def _panels_up_to(self, t_max: int) -> list:
-        """The D^1..D^{t_max} panels, served from and extending the cache."""
-        ps = self._panel_set
-        if ps is None or ps.version != self._version:
-            ps = _PanelSet(version=self._version, panels=[self._regs])
-            self._panel_set = ps
-        while len(ps.panels) < min(t_max, self.MAX_CACHED_PANELS):
-            ps.panels.append(self._propagate_pass(ps.panels[-1]))
-        out = list(ps.panels[:t_max])
+        """The D^1..D^{t_max} panels, served from and extending the cache.
+
+        Serialized under the engine's lock: a snapshot may be served by
+        several reader threads, and extending the cache is the one lazy
+        mutation a query makes.
+        """
+        with self._snap_lock:
+            ps = self._panel_set
+            if ps is None or ps.version != self._version:
+                ps = _PanelSet(version=self._version, panels=[self._regs])
+                self._panel_set = ps
+            while len(ps.panels) < min(t_max, self.MAX_CACHED_PANELS):
+                ps.panels.append(self._propagate_pass(ps.panels[-1]))
+            out = list(ps.panels[:t_max])
         while len(out) < t_max:  # beyond the memory bound: transient
             out.append(self._propagate_pass(out[-1]))
         return out
@@ -450,7 +662,18 @@ class SketchEngine(abc.ABC):
         """One counted Algorithm 2 pass (the only propagate entry point)."""
         out = self._propagate(regs)
         self.propagate_passes += 1
+        plans.record_event("propagate_pass")
         return out
+
+    def _canonical_schedule(self, schedule: str) -> str:
+        """Validate ``schedule`` (one of :data:`SCHEDULES`, ``ValueError``
+        otherwise) and return the panel-cache key it maps to: a single
+        device runs one dataflow for every schedule, so all share one
+        key (the servers coalesce hop queries by it)."""
+        if schedule not in SCHEDULES:
+            raise ValueError(
+                f"schedule must be one of {SCHEDULES}, got {schedule!r}")
+        return "local"
 
     def _check_hop_query(self, kind: str, t_max, schedule: str) -> int:
         """Validate a hop query before any work: ``t_max`` an integer >= 1,
@@ -459,9 +682,7 @@ class SketchEngine(abc.ABC):
         ``t_max`` as an int."""
         t_max = validate_t_max(t_max)
         self._require_kind(kind)
-        if schedule not in SCHEDULES:
-            raise ValueError(
-                f"schedule must be one of {SCHEDULES}, got {schedule!r}")
+        self._canonical_schedule(schedule)
         self._require_edges(kind)
         return t_max
 
@@ -479,8 +700,8 @@ class SketchEngine(abc.ABC):
         local = np.zeros((t_max, self.n), dtype=np.float64)
         glob = np.zeros((t_max,), dtype=np.float64)
         for t, regs in enumerate(self._panels_up_to(t_max), start=1):
-            est = self.kernels.estimate_rows(regs, self.cfg).cpu().numpy()
-            est = est[: self.n]
+            est = self.kernels.estimate_rows(regs, self.cfg)
+            est = est.cpu().numpy()[: self.n]
             local[t - 1] = est
             glob[t - 1] = est.sum()
         return local, glob
@@ -498,21 +719,23 @@ class SketchEngine(abc.ABC):
         version bump of ingest and merge drops the cache.
         """
         panels = self._panels_up_to(t_max)
-        cached = self._panel_set.aux.setdefault("hip", [])
-        rows = list(cached[:t_max])
-        while len(rows) < t_max:
-            i = len(rows)  # panels[i] is D^{i+1}
-            plain = self.kernels.estimate_rows(panels[i], self.cfg)
-            plain = plain.cpu().numpy()[: self.n].astype(np.float64)
-            if i == 0:
-                cur = plain
-            else:
-                delta = self.kernels.hip_delta(panels[i - 1], panels[i])
-                delta = delta.cpu().numpy()[: self.n].astype(np.float64)
-                cur = np.maximum(rows[i - 1] + delta, plain)
-            rows.append(cur)
-            if len(cached) == i and i < self.MAX_CACHED_PANELS:
-                cached.append(cur)
+        with self._snap_lock:
+            cached = self._panel_set.aux.setdefault("hip", [])
+            rows = list(cached[:t_max])
+            while len(rows) < t_max:
+                i = len(rows)  # panels[i] is D^{i+1}
+                plain = self.kernels.estimate_rows(panels[i], self.cfg)
+                plain = plain.cpu().numpy()[: self.n]
+                plain = plain.astype(np.float64)
+                if i == 0:
+                    cur = plain
+                else:
+                    delta = self.kernels.hip_delta(panels[i - 1], panels[i])
+                    delta = delta.cpu().numpy()[: self.n].astype(np.float64)
+                    cur = np.maximum(rows[i - 1] + delta, plain)
+                rows.append(cur)
+                if len(cached) == i and i < self.MAX_CACHED_PANELS:
+                    cached.append(cur)
         return np.stack(rows)
 
     def distance_histogram(self, t_max: int, schedule: str = "auto",
@@ -555,22 +778,23 @@ class SketchEngine(abc.ABC):
     def checkpoint_state(self) -> tuple[dict, dict]:
         """The ``(tree, extra)`` pair :meth:`save` persists.
 
-        ``tree`` holds host numpy arrays: the registers sliced to the n
-        true rows (``uint8[n, r/2]`` on the packed layout, recorded as
-        ``extra["layout"]``), the edge list int32[m, 2] if tracked, and
-        the replica id set if a loaded checkpoint carried one. ``extra``
+        ``tree`` holds host numpy arrays that own their bytes: a copy of
+        the registers sliced to the n true rows (``uint8[n, r/2]`` on the
+        packed layout, recorded as ``extra["layout"]``), the edge list
+        int32[m, 2] if tracked, and the replica id set if one is
+        installed. ``extra``
         holds the JAX package's manifest keys except ``impl``: that
         package reads ``impl`` back as its own kernel choice (``ref`` or
         ``pallas``) and defaults it to ``ref`` when absent, so the port
         records none.
         Call it between ingest blocks, not during one.
         """
-        tree = {"regs": self._regs[: self.n].cpu().numpy()}
+        tree = {"regs": self._regs[: self.n].to("cpu", copy=True).numpy()}
         edges = self.edges
         if edges is not None:
             tree["edges"] = edges
-        if self.replica_ids is not None:
-            tree["replica_ids"] = np.asarray(self.replica_ids, np.int64)
+        if self._replica_ids is not None:
+            tree["replica_ids"] = self._replica_ids.copy()
         extra = {
             "format": ENGINE_FORMAT,
             "backend": self.backend,

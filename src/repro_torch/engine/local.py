@@ -153,7 +153,8 @@ class LocalEngine(SketchEngine):
         """Insert both orientations of an edge chunk (scatter-max): the
         directed rows and keys are built on the device
         (:func:`directed_block`) and folded into the panel in place by one
-        launch, every edge live: no padding, no mask."""
+        launch, every edge live: no padding, no mask. ``ingest`` has
+        released the snapshot lease before the first chunk."""
         rows, keys = directed_block(chunk, self.device)
         self.kernels.accumulate(self._regs, rows, keys, self.cfg)
 

@@ -1,7 +1,7 @@
-"""Query input normalization: id validation, shape buckets, padding.
+"""Query planning: input normalization, shape buckets, the plan cache and
+the trace and event counters.
 
-Port of the backend-independent half of ``repro.engine.plans``. PyTorch
-runs eagerly, so there is no compiled-plan cache here; what stays is the
+Port of the backend-independent half of ``repro.engine.plans``. The
 host-side contract every query keeps:
 
 * vertex ids are validated on the host, against the engine's universe
@@ -12,13 +12,39 @@ host-side contract every query keeps:
   padding pairs point at row 0; the caller drops their answers;
 * set batches pad to power-of-two ``(B, L)`` buckets; padding slots are
   masked and merge nothing, so they never pull row 0 into a union.
+
+A *plan* is the function that answers one batched query kind (union,
+intersection, or a mixed batch) at one shape bucket, resolved through
+:class:`PlanCache` under the JAX package's key coordinates (query,
+bucket, cfg, backend, layout, extra, family). PyTorch runs eagerly, so a
+plan is a plain function and nothing compiles; what the cache keeps is
+the JAX package's accounting for the kinds whose shapes vary with the
+batch. Every other query calls its kernel directly. Its *trace counter*
+(:func:`trace_counts`) counts the first build of each key, the quantity
+that shape bucketing bounds to O(log batch) per query kind, so the
+serving tests and ``stats()["plan_traces"]`` keep their meaning. The
+*event counters* (:func:`event_counts`) count executions seen on the
+host: engines record ``"propagate_pass"`` once per Algorithm 2 pass run
+(the t-hop panel cache's "zero passes on an unchanged engine") and
+``"lease_clone"`` once per register panel cloned for a live snapshot.
 """
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+from dataclasses import dataclass
+
 import numpy as np
+import torch
+
+from repro_torch.kernels import registry
 
 __all__ = ["bucket", "require_integer_ids", "split_sets", "pad_sets",
-           "normalize_sets", "split_pairs", "pad_pairs"]
+           "normalize_sets", "split_pairs", "pad_pairs", "PlanKey",
+           "PlanCache", "global_cache", "record_trace", "trace_counts",
+           "reset_trace_counts", "record_event", "event_counts",
+           "reset_event_counts", "build_union_plan", "build_intersection_plan",
+           "build_mixed_plan"]
 
 
 def bucket(size: int, minimum: int = 8) -> int:
@@ -129,3 +155,190 @@ def pad_pairs(arr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     mask[:n_real] = True
     return out, mask
 
+
+
+# ------------------------------------------------------ trace and event counters
+_COUNT_LOCK = threading.Lock()
+_TRACE_COUNTS: dict[str, int] = {}
+_EVENT_COUNTS: dict[str, int] = {}
+
+
+def record_trace(query: str) -> None:
+    """Count one plan build for ``query`` (a :class:`PlanCache` miss)."""
+    with _COUNT_LOCK:
+        _TRACE_COUNTS[query] = _TRACE_COUNTS.get(query, 0) + 1
+
+
+def trace_counts() -> dict[str, int]:
+    """Snapshot of {query kind: plan builds since the last reset}."""
+    with _COUNT_LOCK:
+        return dict(_TRACE_COUNTS)
+
+
+def reset_trace_counts() -> None:
+    """Zero the trace counters (test fixtures; serving stats windows)."""
+    with _COUNT_LOCK:
+        _TRACE_COUNTS.clear()
+
+
+def record_event(event: str) -> None:
+    """Count one host-observed execution of ``event`` (e.g. one
+    ``"propagate_pass"``, one ``"lease_clone"``)."""
+    with _COUNT_LOCK:
+        _EVENT_COUNTS[event] = _EVENT_COUNTS.get(event, 0) + 1
+
+
+def event_counts() -> dict[str, int]:
+    """Snapshot of {event: executions since the last reset}."""
+    with _COUNT_LOCK:
+        return dict(_EVENT_COUNTS)
+
+
+def reset_event_counts() -> None:
+    """Zero the event counters (test fixtures; serving stats windows)."""
+    with _COUNT_LOCK:
+        _EVENT_COUNTS.clear()
+
+
+# ------------------------------------------------------------------ plan cache
+@dataclass(frozen=True)
+class PlanKey:
+    """Identity of a query plan: the JAX package's key coordinates.
+
+    Attributes:
+      query: query kind ("union" | "intersection" | "mixed").
+      bucket: the padded, bucketed input shape.
+      cfg: the sketch config (a frozen dataclass).
+      backend: engine backend ("local").
+      layout: register layout ("byte" | "packed").
+      extra: further specialization (estimator method and iterations,
+        the kinds of a mixed batch).
+      family: sketch family ("hll" | "ads").
+    """
+
+    query: str
+    bucket: tuple = ()
+    cfg: object = None
+    backend: str = "local"
+    layout: str = "byte"
+    extra: tuple = ()
+    family: str = "hll"
+
+
+class PlanCache:
+    """LRU-bounded, thread-safe map from :class:`PlanKey` to plan.
+
+    One instance (:func:`global_cache`) is shared by every engine in the
+    process, so engines with identical coordinates share plans; a miss
+    builds the plan and records one trace for ``key.query``.
+    """
+
+    def __init__(self, maxsize: int = 256):
+        if maxsize < 1:
+            raise ValueError(f"maxsize must be >= 1, got {maxsize}")
+        self._maxsize = int(maxsize)
+        self._entries: OrderedDict[PlanKey, object] = OrderedDict()
+        self._lock = threading.RLock()
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    @property
+    def maxsize(self) -> int:
+        """The LRU bound."""
+        return self._maxsize
+
+    def __len__(self) -> int:
+        with self._lock:
+            return len(self._entries)
+
+    def __contains__(self, key: PlanKey) -> bool:
+        with self._lock:
+            return key in self._entries
+
+    def get(self, key: PlanKey, builder):
+        """The plan for ``key``, built by ``builder()`` (and counted as one
+        trace of ``key.query``) on a miss."""
+        with self._lock:
+            fn = self._entries.get(key)
+            if fn is not None:
+                self._entries.move_to_end(key)
+                self.hits += 1
+                return fn
+            self.misses += 1
+            fn = builder()
+            record_trace(key.query)
+            self._entries[key] = fn
+            while len(self._entries) > self._maxsize:
+                self._entries.popitem(last=False)
+                self.evictions += 1
+            return fn
+
+    def clear(self) -> None:
+        """Drop every cached plan (the statistics are kept)."""
+        with self._lock:
+            self._entries.clear()
+
+    def stats(self) -> dict:
+        """Snapshot {hits, misses, evictions, size, maxsize}."""
+        with self._lock:
+            return {"hits": self.hits, "misses": self.misses,
+                    "evictions": self.evictions, "size": len(self._entries),
+                    "maxsize": self._maxsize}
+
+
+_GLOBAL_CACHE = PlanCache()
+
+
+def global_cache() -> PlanCache:
+    """The process-wide plan cache engines share by default."""
+    return _GLOBAL_CACHE
+
+
+# --------------------------------------------------------------- plan builders
+# Plans exist for the kinds whose traces the servers report (``union``,
+# ``intersection``, ``mixed``); every other query calls its kernel
+# directly. A builder closes over the config and the kernel set only,
+# never over an engine, so one plan serves every engine with the same
+# key. Host inputs (padded ids and masks) cross to the panel's device
+# inside.
+
+def _on(regs: torch.Tensor, a: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(a).to(regs.device)
+
+
+def build_union_plan(cfg, kernels):
+    """(regs, ids int32[B, L], mask bool[B, L]) -> float32[B] unions."""
+    def plan(regs, ids, mask):
+        return kernels.union_estimate(regs, _on(regs, ids), _on(regs, mask),
+                                      cfg)
+    return plan
+
+
+def build_intersection_plan(cfg, kernels, method: str, iters: int):
+    """(regs, ids int32[B, 2]) -> float32[B] pair estimates."""
+    fam = registry.family(kernels.family)
+
+    def plan(regs, ids):
+        stats, sz = kernels.intersection_stats(regs, _on(regs, ids), cfg)
+        return fam.estimate_from_pair_stats(stats, sz, cfg, method, iters)
+    return plan
+
+
+def build_mixed_plan(cfg, kernels, kinds: tuple, method: str, iters: int):
+    """One plan for a batch of two or more kinds among degrees, union and
+    intersection: each kind runs the same kernels as its own query on the
+    same inputs, so the answers equal the per-kind queries' bit for bit."""
+    uni = build_union_plan(cfg, kernels)
+    inter = build_intersection_plan(cfg, kernels, method, iters)
+
+    def plan(regs, u_ids, u_mask, p_ids):
+        out = {}
+        if "degrees" in kinds:
+            out["degrees"] = kernels.estimate_rows(regs, cfg)
+        if "union" in kinds:
+            out["union"] = uni(regs, u_ids, u_mask)
+        if "intersection" in kinds:
+            out["intersection"] = inter(regs, p_ids)
+        return out
+    return plan

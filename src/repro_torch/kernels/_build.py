@@ -10,9 +10,14 @@ sources and flags, so an unchanged tree reuses it and an edited one
 rebuilds. A missing ``nvcc`` or a failed build raises; nothing falls back.
 
 Each wrapper launches through :func:`launch`, which raises on a non-zero
-error code and otherwise adds one to the kernel's launch counter: the
-only global state of the port, read by ``chip_smoke.py`` to show that the
-main path went through the kernels.
+error code and otherwise adds one to the kernel's launch counter, read by
+``chip_smoke.py`` to show that the main path went through the kernels.
+
+Both are safe from several threads (the serving frontends call the engine
+from a worker, a writer and a reader thread): one lock makes exactly one
+thread build and load the library, another makes each counter increment
+atomic. The launch itself runs outside any lock, so launches from
+different threads do not serialise on the host.
 """
 from __future__ import annotations
 
@@ -22,14 +27,15 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
 
 __all__ = ["KERNELS", "NVCC_FLAGS", "build", "compile_library", "library",
-           "launch",
-           "launch_counts", "reset_launch_counts", "check_device", "check_panel",
-           "check_ids", "kernel_name", "stream_of"]
+           "launch", "count_launch", "launch_counts", "reset_launch_counts",
+           "check_device", "check_panel", "check_ids", "kernel_name",
+           "stream_of"]
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -64,7 +70,9 @@ KERNELS.update({f"{name}_packed": KERNELS[name] for name in (
     "intersection_stats", "union_estimate_stats", "ertl_stats")})
 
 _LAUNCHES = {name: 0 for name in KERNELS}
+_LAUNCH_LOCK = threading.Lock()
 _LIB: ctypes.CDLL | None = None
+_LIB_LOCK = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -134,17 +142,25 @@ def build() -> Path:
 
 
 def library() -> ctypes.CDLL:
-    """The loaded kernel library (built on first use), argtypes declared."""
+    """The loaded kernel library (built on first use), argtypes declared.
+
+    The first call builds and loads under a lock, so threads that launch
+    their first kernel together wait for one build instead of compiling
+    into the same path.
+    """
     global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build()))
-        for name, argtypes in KERNELS.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(argtypes)
-            fn.restype = ctypes.c_int
-        lib.repro_error_string.argtypes = [ctypes.c_int]
-        lib.repro_error_string.restype = ctypes.c_char_p
-        _LIB = lib
+    if _LIB is not None:
+        return _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in KERNELS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _LIB = lib
     return _LIB
 
 
@@ -166,18 +182,26 @@ def launch(name: str, device: torch.device, *args) -> None:
         raise RuntimeError(
             f"CUDA kernel {name} failed to launch: cudaError {err} "
             f"({lib.repro_error_string(err).decode()})")
-    _LAUNCHES[name] += 1
+    count_launch(name)
+
+
+def count_launch(name: str) -> None:
+    """Add one to kernel ``name``'s launch counter (atomically)."""
+    with _LAUNCH_LOCK:
+        _LAUNCHES[name] += 1
 
 
 def launch_counts() -> dict[str, int]:
     """Snapshot of {kernel: launches since the last reset}."""
-    return dict(_LAUNCHES)
+    with _LAUNCH_LOCK:
+        return dict(_LAUNCHES)
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch counter to 0."""
-    for name in _LAUNCHES:
-        _LAUNCHES[name] = 0
+    with _LAUNCH_LOCK:
+        for name in _LAUNCHES:
+            _LAUNCHES[name] = 0
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -209,14 +209,14 @@ def test_jax_checkpoint_loads_in_the_port(graph, tmp_path, family, backend):
 
 
 def test_replica_ids_cross_both_ways(graph, tmp_path):
-    """A replica id set is kept as data, written back, and reinstalled
-    by the reference's load."""
+    """A replica id set is installed by load, written back, and
+    reinstalled by the reference's load."""
     edges, n = graph
     want = _jax(edges, n, "hll")
     want.replicate(np.array([9, 2, 40]))
     want.save(str(tmp_path / "a"))
     back = engine.load(str(tmp_path / "a"), device="cpu")
-    np.testing.assert_array_equal(back.replica_ids, [2, 9, 40])
+    np.testing.assert_array_equal(back.replicated_ids, [2, 9, 40])
     _same_answers(back, _port(edges, n, "hll"))
     back.save(str(tmp_path / "b"))
     again = jax_engine.load(str(tmp_path / "b"))

@@ -871,3 +871,166 @@ def test_packed_engine_on_the_card_matches_the_cpu(dev):
     left = engine.build(edges[0::2], n, cfg, layout="packed")
     left.merge(engine.build(edges[1::2], n, cfg, device="cpu"))  # byte
     assert torch.equal(left.regs, card.regs)
+
+
+# ------------------------------------------------------------- serving
+SERVE_SCALE, SERVE_WAIT = 14, 120
+
+
+def _serve_graph():
+    from repro_torch.graph import generators
+    edges = generators.rmat(SERVE_SCALE, 16, seed=11)
+    return edges, 1 << SERVE_SCALE
+
+
+def _card_engine(edges, n, layout="byte"):
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    return engine.build(edges, n, HLLConfig(p=8), layout=layout,
+                        device="cuda")
+
+
+def _run_threads(fn, n):
+    import threading
+    errors = []
+
+    def body(i):
+        try:
+            fn(i)
+        except Exception as e:  # noqa: BLE001 — surfaced below
+            errors.append(e)
+
+    threads = [threading.Thread(target=body, args=(i,), daemon=True)
+               for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=SERVE_WAIT)
+        assert not t.is_alive(), "a client thread did not finish"
+    assert not errors, errors
+
+
+def test_direct_launch_counts_exact_under_threads(dev):
+    """8 threads querying one engine at once: every launch is counted."""
+    edges, n = _serve_graph()
+    eng = _card_engine(edges, n)
+    sets = [np.arange(i, i + 5) for i in range(40)]
+    _build.reset_launch_counts()
+    _run_threads(lambda i: [eng.union_size(sets) for _ in range(50)], 8)
+    torch.cuda.synchronize()
+    counts = _build.launch_counts()
+    assert counts["union_estimate_stats"] == 8 * 50
+    assert sum(counts.values()) == 8 * 50
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+def test_query_server_on_the_card(dev, layout):
+    """8 client threads through a QueryServer at RMAT scale 14: every
+    answer equals the direct call on the card bit for bit, and each
+    kernel launched once per served batch of its kind."""
+    from repro_torch.engine import plans
+    from repro_torch.serve import QueryServer
+    edges, n = _serve_graph()
+    direct = _card_engine(edges, n, layout)
+    rng = np.random.default_rng(3)
+    work = []
+    for c in range(8):
+        reqs = []
+        for j in range(12):
+            kind = ("degrees", "union", "intersection")[(c + j) % 3]
+            if kind == "union":
+                arg = [rng.integers(0, n, int(rng.integers(1, 30)))
+                       for _ in range(int(rng.integers(1, 9)))]
+            elif kind == "intersection":
+                arg = edges[rng.integers(0, len(edges), int(rng.integers(1, 65)))]
+            else:
+                arg = None
+            reqs.append((kind, arg))
+        work.append(reqs)
+    want = [[direct.degrees() if k == "degrees" else
+             direct.union_size(a) if k == "union" else
+             direct.intersection_size(a) for k, a in reqs] for reqs in work]
+    got = [[None] * 12 for _ in range(8)]
+    eng = _card_engine(edges, n, layout)
+    eng._plan_cache = plans.PlanCache(maxsize=64)
+    with QueryServer(eng) as srv:
+        _build.reset_launch_counts()
+
+        def client(c):
+            for j, (kind, arg) in enumerate(work[c]):
+                got[c][j] = (srv.degrees() if kind == "degrees" else
+                             srv.union_size(arg) if kind == "union" else
+                             srv.intersection_size(arg))
+        _run_threads(client, 8)
+        torch.cuda.synchronize()
+        counts = _build.launch_counts()
+        stats = srv.stats()
+    for c in range(8):
+        for j in range(12):
+            assert np.array_equal(got[c][j], want[c][j]), (c, j)
+    name = (lambda k: _build.kernel_name(k, layout))
+    assert counts[name("hll_estimate_stats")] == stats["degrees"]["batches"]
+    assert counts[name("union_estimate_stats")] == stats["union"]["batches"]
+    assert (counts[name("intersection_stats")]
+            == stats["intersection"]["batches"])
+    assert stats["requests_total"] == 96
+
+
+def test_continuous_server_on_the_card(dev):
+    """A writer ingesting 8 blocks while 8 reader threads query: every
+    answer equals the direct call at the version that served it, the
+    flushed registers equal a one-shot build, one lease clone a
+    rotation."""
+    import threading
+    from repro_torch.engine import plans
+    from repro_torch.serve import ContinuousServer, RotationPolicy
+    edges, n = _serve_graph()
+    base = len(edges) // 2
+    blocks = np.array_split(edges[base:], 8)
+    sets = [np.arange(7), np.arange(100, 140, 3)]
+    pairs = edges[:48].astype(np.int64)
+    eng = _card_engine(edges[:base], n)
+    refs = {}  # writer version -> (degrees, unions, intersections)
+    for k in range(9):
+        ref = _card_engine(edges[: base + sum(map(len, blocks[:k]))], n)
+        refs[eng.version + k] = (ref.degrees(), ref.union_size(sets),
+                                 ref.intersection_size(pairs))
+    first = eng.snapshot()
+    seen = []
+    stop = threading.Event()
+    plans.reset_event_counts()
+    with ContinuousServer(eng, rotation=RotationPolicy(every_blocks=2)) as srv:
+        def reader(i):
+            kind, payload = (("degrees", ()), ("union", (sets, False)),
+                             ("intersection", (pairs, False, "mle",
+                                               50)))[i % 3]
+            while not stop.is_set():
+                req = srv._submit(kind, payload, None)
+                assert req.done.wait(timeout=SERVE_WAIT)
+                seen.append((i % 3, req.epoch, req.wait()))
+
+        failed = []
+
+        def run_readers():
+            try:
+                _run_threads(reader, 8)
+            except BaseException as e:  # noqa: BLE001 — surfaced below
+                failed.append(e)
+
+        readers = threading.Thread(target=run_readers, daemon=True)
+        readers.start()
+        for blk in blocks:
+            srv.ingest(blk)
+        srv.flush(timeout=SERVE_WAIT)
+        stop.set()
+        readers.join(timeout=2 * SERVE_WAIT)
+        assert not readers.is_alive() and not failed, failed
+        rotations = srv.stats()["snapshot"]["rotations"]
+        final = srv._slot.get()
+        assert torch.equal(final.regs, _card_engine(edges, n).regs)
+    assert seen
+    for which, epoch, answer in seen:
+        assert np.array_equal(answer, refs[epoch][which]), (which, epoch)
+    assert plans.event_counts().get("lease_clone", 0) == rotations >= 1
+    assert first.regs.untyped_storage().data_ptr() != \
+        final.regs.untyped_storage().data_ptr()

@@ -19,12 +19,12 @@ torch = pytest.importorskip("torch")
 
 from repro import engine as jax_engine  # noqa: E402
 from repro.core.hll import HLLConfig as JaxConfig  # noqa: E402
-from repro.graph.stream import EdgeStream  # noqa: E402
 from repro_torch import engine  # noqa: E402
 from repro_torch.core.ads import ADSConfig  # noqa: E402
 from repro_torch.core.hll import HLLConfig  # noqa: E402
 from repro_torch.engine import convert  # noqa: E402
 from repro_torch.graph import generators  # noqa: E402
+from repro_torch.graph.stream import EdgeStream  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 
 ITERS = 10
