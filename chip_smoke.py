@@ -53,6 +53,23 @@ Phases, one line each:
    (bit for bit the per-kind answers); every kernel of the path must have
    launched; then the share of the pairs that the reference's
    Hessian-overflow flag holds still;
+5f. functional core, counters zeroed just before: ``degreesketch.
+   accumulate`` (one ``hll_accumulate`` launch per 2^15 directed edges)
+   equal to the main path's panel, ``hll.degree_estimates`` to
+   ``degrees()`` and ``neighborhood_estimates(.., 3)`` from that sketch
+   (two propagate and three estimate launches over one routing) to
+   ``neighborhood(3)``, all bit for bit, timed, with peak memory;
+5g. colored, counters zeroed just before: 3 seeded colors,
+   ``colored_accumulate`` (one launch per ingest chunk over the 3 GiB of
+   flattened planes) and ``colored_neighborhood(t_max=2)`` (one
+   propagate launch per plane); the max over the planes equal to the
+   panel at t=1 and to its ``D^2`` at t=2 bit for bit, each of 8 hubs'
+   plane rows equal bit for bit to the plain version's sketch
+   (``impl="ref"``, no kernel) of its exact neighbors of that color,
+   ``count`` at t=1 against the exact counts: their root mean square
+   error within ``2 * rel_std`` (gated), each count against
+   ``4 * rel_std`` (reported), and ``count_and`` of 4 (x, c1, c2) finite
+   through ``ertl_stats``;
 5s. serving, on the same graph, launch counters zeroed just before each
    served run: a ``QueryServer`` over a fresh byte engine, 8 client
    threads x 24 seeded requests (1/8 ``degrees``, 3/8 ``union_size`` of 8
@@ -110,6 +127,12 @@ Phases, one line each:
    ``triangle_heavy_hitters(k=100, mode="edge")`` (finite values in
    descending order, real edges, a positive total, ``ertl_stats`` and
    ``hll_estimate_stats`` launched);
+9k. Kronecker truth, counters zeroed just before the build: C = A x A,
+   A = rmat(8, 8, seed=0) (65,536 vertices, 3,302,450 edges), whose
+   exact per-edge triangle counts (``kron_edge_triangles``) must total
+   83,253,750; ``triangle_heavy_hitters(k=100, mode="edge")`` gated as
+   in phase 9, its top-100 recall against the exact counts and its
+   total's relative error printed, not gated;
 10. small reference: the same queries at RMAT scale 10 on the CPU (plain
     versions) and on the card, which must agree, the top-20 recall of
     the estimated triangle heavy hitters against exact counts (reported),
@@ -118,13 +141,18 @@ Phases, one line each:
     then the packed engine on both, triangles (edge and vertex) included,
     with counters zeroed just before the card's run (the engine path of
     ``ertl_stats_packed``), the card's answers also equal to the byte
-    kernels' on the clamped panel bit for bit.
+    kernels' on the clamped panel bit for bit; and ``impl="ref"`` engines
+    (byte and ADS) on the card, counters zeroed just before them: every
+    answer equal to the ``impl="cuda"`` engines' on the card bit for bit,
+    and no kernel launched.
 
 Then the kernels JSON line (every launcher launched on a counted path),
 the card line, and the last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the script
-exits non-zero without that line; so does a run without a CUDA device or
-outside the repository.
+exits non-zero without that line; so does a run without a CUDA device,
+outside the repository, or with ``REPRO_TORCH_IMPL``,
+``REPRO_TORCH_LAYOUT`` or ``REPRO_TORCH_FAMILY`` naming another default
+than "cuda", "byte" and "hll".
 """
 from __future__ import annotations
 
@@ -150,6 +178,13 @@ SERVE_INGEST = 1 << 20
 CONT_BLOCKS, CONT_BLOCK, CONT_READERS = 16, 1 << 18, 4
 FT_SCALE, FT_BLOCKS = 16, 12
 SERVE_WAIT = 300  # seconds any serving wait may take before the smoke fails
+COLORS, COLOR_HUBS, COLOR_ANDS = 3, 8, 4
+#: gate on the root mean square relative error of the hubs' color counts,
+#: in units of rel_std(P) (see ``colored_phase``)
+COLOR_RMS_BOUND = 2.0
+#: C = A x A with A = rmat(KRON_FACTOR_SCALE, 8, seed=0): n = 65,536 and
+#: 3,302,450 undirected edges, whose exact triangle count is KRON_TRIANGLES
+KRON_FACTOR_SCALE, KRON_TRIANGLES = 8, 83_253_750
 DEVICE = "cuda"
 
 SOURCES = {
@@ -515,7 +550,7 @@ def accumulate_timing(torch, np, edges, n_pad, layout, built, err):
     arguments; ``err`` is the whole-graph comparison's."""
     from repro_torch.core.hashing import bucket_rho
     from repro_torch.engine.base import SketchEngine
-    from repro_torch.engine.local import directed_block
+    from repro_torch.kernels.inputs import directed_block
     from repro_torch.kernels import hll_accumulate
 
     dev = torch.device(DEVICE)
@@ -581,7 +616,7 @@ def routing_timing(torch, np, edges):
     ``sort_routing`` of the whole routing with CUDA events, and the device
     memory the build takes at its peak and keeps. Prints one line;
     returns the routing."""
-    from repro_torch.engine.local import directed_routing
+    from repro_torch.kernels.inputs import directed_routing
     from repro_torch.kernels.hll_propagate import sort_routing
 
     dev = torch.device(DEVICE)
@@ -703,7 +738,7 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, skew, panel,
            f"{n_pad} rows; equal to the byte kernel on the clamped panel")
 
     # propagate: the engine's routing; pack_rows commutes with the pass
-    from repro_torch.engine.local import directed_routing
+    from repro_torch.kernels.inputs import directed_routing
     src, dst = directed_routing(edges, dev)
     prop_k = hll_propagate.hll_propagate(regs_k, src, dst, layout="packed")
     prop_p = hll_propagate.plain(regs_k, src, dst, layout="packed")
@@ -889,7 +924,7 @@ def main_path(torch, np, edges, n, pairs, verts, sets, panel):
     if missing:
         fail(f"main-path kernels never launched: {missing}")
     overflow_share(torch, eng, pairs)
-    return counts, deg
+    return counts, deg, (loc, glob)
 
 
 def launch_check(label, kernel, counts, before, want, what):
@@ -1316,11 +1351,64 @@ def small_reference(torch, np):
         fail("small reference: query_batch differs from per-kind answers")
     small_triangles(np, cpu, gpu, edges, n)
     small_ads(torch, np, edges, n)
+    ref_on_card(torch, np, gpu, edges, n, sample, sets)
     log("small reference: rmat10 p=8 CPU plain vs card kernels: registers "
         "identical, degrees/neighborhood/union rtol 1e-5, intersection ie "
         "1e-5 / mle 1e-4, query_batch bit for bit, triangles 1e-4 of the "
         "estimates' scale")
     return small_packed(torch, np, edges, n, sample, sets)
+
+
+def ref_on_card(torch, np, gpu, edges, n, sample, sets):
+    """``impl="ref"`` on the card: an engine of the plain versions, byte
+    and ADS, whose registers and every answer equal the ``impl="cuda"``
+    engines' on the card bit for bit, with every launch counter still 0
+    after its calls (the counters are zeroed just before them)."""
+    from repro_torch import engine
+    from repro_torch.core.ads import ADSConfig
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.kernels import _build
+
+    def answers(eng):
+        out = [eng.regs.cpu().numpy(), eng.degrees(), *eng.neighborhood(T_MAX),
+               eng.union_size(sets),
+               eng.intersection_size(sample, method="ie"),
+               eng.intersection_size(sample, iters=10)]
+        batch = eng.query_batch(degrees=True, vertex_sets=sets, pairs=sample,
+                                iters=10)
+        out += [batch[k] for k in sorted(batch)]
+        for mode in ("edge", "vertex"):
+            tot, vals, ids = eng.triangle_heavy_hitters(20, mode=mode)
+            out += [np.float64(tot), vals, ids]
+        return out
+
+    def ads_answers(eng):
+        hist, glob = eng.distance_histogram(ADS_T)
+        return [eng.regs.cpu().numpy(), hist, glob, eng.closeness(ADS_T)]
+
+    want = answers(gpu)
+    want_ads = ads_answers(engine.build(edges, n, ADSConfig(p=P),
+                                        device=DEVICE))
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref = engine.build(edges, n, HLLConfig(p=P), impl="ref", device=DEVICE)
+    got = answers(ref)
+    got_ads = ads_answers(engine.build(edges, n, ADSConfig(p=P), impl="ref",
+                                       device=DEVICE))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = {k: c for k, c in _build.launch_counts().items() if c}
+    if ref.device.type != DEVICE or ref.impl != "ref" or launched:
+        fail(f"impl='ref' on the card launched kernels: {launched}")
+    differ = [i for i, (a, b) in enumerate(zip(got + got_ads,
+                                               want + want_ads))
+              if not np.array_equal(a, b)]
+    if differ:
+        fail(f"impl='ref' on the card differs from impl='cuda' in answers "
+             f"{differ}")
+    log(f"small reference: impl='ref' on the card ({secs:.1f} s, byte and "
+        f"ADS engines): registers and {len(want) + len(want_ads) - 2} "
+        f"answers equal impl='cuda' bit for bit; launches 0")
 
 
 def small_packed(torch, np, edges, n, sample, sets):
@@ -1470,6 +1558,240 @@ def small_triangles(np, cpu, gpu, edges, n):
         f"{exact.exact_global_triangles(n, edges, truth)}; top-20 recall "
         f"against exact counts: edges {recall['edge']:.2f}, vertices "
         f"{recall['vertex']:.2f} (reported, not gated)")
+
+
+def functional_phase(torch, np, edges, n, panel, deg, hops):
+    """Phase 5f: the functional core API on the main path's graph, launch
+    counters zeroed just before: ``degreesketch.accumulate`` (one launch
+    per 2^15 directed edges, the JAX package's block), its registers the
+    main path's panel bit for bit; ``hll.degree_estimates`` the engine's
+    ``degrees()`` bit for bit; ``neighborhood_estimates(.., 3)`` from that
+    sketch (one routing, two propagate and three estimate launches) the
+    engine's ``neighborhood(3)`` bit for bit, ``glob`` included (both sum
+    the same float32 estimates in numpy). Returns the launch counts."""
+    from repro_torch.core import degreesketch as dsk, hll
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.kernels import _build
+
+    cfg = HLLConfig(p=P)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    secs = {}
+    t0 = time.perf_counter()
+    ds = dsk.accumulate(edges, n, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    secs["accumulate"] = time.perf_counter() - t0
+    block = 1 << 15
+    launch_check("functional", "hll_accumulate", _build.launch_counts(), 0,
+                 -(-2 * len(edges) // block), "degreesketch.accumulate")
+    if not torch.equal(ds.regs.cpu(), panel):
+        fail("functional: degreesketch.accumulate differs from the main "
+             "path's panel")
+    before = _build.launch_counts()
+    t0 = time.perf_counter()
+    d = hll.degree_estimates(ds.regs, cfg).cpu().numpy()[:n]
+    secs["degree_estimates"] = time.perf_counter() - t0
+    launch_check("functional", "hll_estimate_stats", _build.launch_counts(),
+                 before, 1, "hll.degree_estimates")
+    if not np.array_equal(d, deg):
+        fail("functional: hll.degree_estimates differs from engine.degrees()")
+    before = _build.launch_counts()
+    t0 = time.perf_counter()
+    local, glob, d3 = dsk.neighborhood_estimates(edges, n, cfg, T_MAX,
+                                                 sketch=ds)
+    torch.cuda.synchronize()
+    secs["neighborhood_estimates"] = time.perf_counter() - t0
+    after = _build.launch_counts()
+    launch_check("functional", "hll_propagate", after, before, T_MAX - 1,
+                 f"neighborhood_estimates(.., {T_MAX})")
+    launch_check("functional", "hll_estimate_stats", after, before, T_MAX,
+                 f"neighborhood_estimates(.., {T_MAX})")
+    if not (np.array_equal(local, hops[0]) and np.array_equal(glob, hops[1])):
+        fail("functional: neighborhood_estimates differs from "
+             "engine.neighborhood")
+    if torch.equal(d3.regs, ds.regs) or not torch.equal(ds.regs.cpu(),
+                                                        panel):
+        fail("functional: the passes changed the accumulated sketch")
+    log(f"functional: rmat{SCALE} p={P}: accumulate {secs['accumulate']:.3f}"
+        f" s, degree_estimates {secs['degree_estimates']:.4f} s, "
+        f"neighborhood_estimates({T_MAX}) "
+        f"{secs['neighborhood_estimates']:.3f} s, max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; registers, "
+        f"degrees, local and glob equal the engine's bit for bit; launches "
+        f"{_build.launch_counts()}")
+    return _build.launch_counts()
+
+
+def colored_phase(torch, np, edges, n, panel):
+    """Phase 5g: colored sketches on the main path's graph, ``COLORS``
+    seeded colors, launch counters zeroed just before:
+    ``colored_accumulate`` then ``colored_neighborhood(t_max=2)``; the max
+    over the planes equals the plain panel bit for bit at t=1 and its
+    ``D^2`` at t=2 (register max is associative); the t=1 plane row of
+    each of ``COLOR_HUBS`` hubs and each color equal to the sketch of the
+    hub's exact neighbors of that color built by the plain version
+    (``ops.accumulate(.., impl="ref")``, which the CPU tests hold byte
+    for byte to the JAX package's ``hll.insert``); ``count`` of those
+    rows against the exact counts: gated on the root mean square of the
+    relative errors, ``COLOR_RMS_BOUND * rel_std``, and reported against
+    ``tests/test_colored.py``'s ``4 * rel_std`` per count. One count at
+    the smoke's seed is a 4.2-sigma draw of the hash, equal in the JAX
+    package and inside 2.3 sigma under 32 other hash seeds
+    (``scripts/colored_draws.py``); a one-count bound at 4 sigma fails
+    on such draws, while the root mean square of 24 unit errors exceeds
+    2 with a probability under 1e-9 (chi-square, 24 degrees), and a
+    plane in the wrong place or a lost color lifts it far past that.
+    ``count_and`` of ``COLOR_ANDS`` (x, c1, c2) finite. Returns the launch
+    counts."""
+    from repro_torch.core import colored, degreesketch as dsk, hll
+    from repro_torch.core.hll import HLLConfig, rel_std
+    from repro_torch.kernels import _build, ops
+    from repro_torch.kernels.inputs import INGEST_BLOCK, directed_routing
+
+    cfg = HLLConfig(p=P)
+    rng = np.random.default_rng(SEED + 7)
+    colors = rng.integers(0, COLORS, n)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    sk1 = colored.colored_accumulate(edges, colors, n, cfg, device=DEVICE)
+    torch.cuda.synchronize()
+    t_acc = time.perf_counter() - t0
+    launch_check("colored", "hll_accumulate", _build.launch_counts(), 0,
+                 -(-len(edges) // INGEST_BLOCK), "colored_accumulate")
+    if not torch.equal(sk1.regs.amax(dim=0).cpu(), panel):
+        fail("colored: the max over the planes differs from the plain panel "
+             "at t=1")
+    before = _build.launch_counts()
+    t0 = time.perf_counter()
+    sk2 = colored.colored_neighborhood(sk1, edges, 2)
+    torch.cuda.synchronize()
+    t_pass = time.perf_counter() - t0
+    launch_check("colored", "hll_propagate", _build.launch_counts(), before,
+                 COLORS, "colored_neighborhood(t_max=2)")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    src, dst = directed_routing(edges, sk2.regs.device)
+    d2 = dsk.neighborhood_pass(panel.to(DEVICE), src, dst)
+    del src, dst
+    if not torch.equal(sk2.regs.amax(dim=0), d2):
+        fail("colored: the max over the planes differs from D^2 at t=2")
+    del d2
+    deg = np.bincount(edges.ravel(), minlength=n)
+    hubs = np.argsort(-deg)[:COLOR_HUBS]
+    near = edges[np.isin(edges[:, 0], hubs) | np.isin(edges[:, 1], hubs)]
+    bound = 4 * rel_std(P)
+    errs, misses = [], []
+    before = _build.launch_counts()
+    for x in map(int, hubs):
+        nbrs = np.concatenate([near[near[:, 0] == x, 1],
+                               near[near[:, 1] == x, 0]])
+        for c in range(COLORS):
+            own = nbrs[colors[nbrs] == c]
+            # the plane row is the sketch of exactly x's c-colored
+            # neighbors, as the plain version builds it
+            plain = torch.zeros((1, cfg.r), dtype=torch.uint8, device=DEVICE)
+            keys = torch.from_numpy(own.astype(np.int32)).to(DEVICE)
+            ops.accumulate(plain, torch.zeros_like(keys),
+                           keys.view(torch.uint32), cfg, impl="ref")
+            if not torch.equal(sk1.regs[c, x], plain[0]):
+                fail(f"colored: plane {c} row {x} is not the sketch of its "
+                     f"{len(own)} neighbors of color {c}")
+            est = sk1.count(x, c)
+            errs.append((est - len(own)) / max(len(own), 1))
+            if abs(est - len(own)) > max(bound * len(own), 3):
+                misses.append((x, c, round(est, 1), len(own)))
+    if _build.launch_counts()["hll_accumulate"] != before["hll_accumulate"]:
+        fail("colored: the plain version launched hll_accumulate")
+    rms = float(np.sqrt(np.mean(np.square(errs))))
+    if not rms <= COLOR_RMS_BOUND * rel_std(P):
+        fail(f"colored: root mean square error of the {len(errs)} counts "
+             f"{rms:.4f} exceeds {COLOR_RMS_BOUND} x rel_std = "
+             f"{COLOR_RMS_BOUND * rel_std(P):.4f}: {errs}")
+    ands = [(int(hubs[i]), i % COLORS, (i + 1) % COLORS)
+            for i in range(COLOR_ANDS)]
+    before = _build.launch_counts()
+    inter = [sk1.count_and(*a) for a in ands]
+    if _build.launch_counts()["ertl_stats"] == before["ertl_stats"]:
+        fail("colored: count_and did not launch ertl_stats")
+    if not np.isfinite(inter).all():
+        fail(f"colored: count_and is not finite: {inter}")
+    log(f"colored: rmat{SCALE} p={P}, {COLORS} colors, planes "
+        f"{sk1.regs.numel() / 2**30:.2f} GiB: colored_accumulate {t_acc:.3f}"
+        f" s, colored_neighborhood(2) {t_pass:.3f} s, max_memory_allocated "
+        f"{peak:.2f} GiB; plane max equals the plain panel at t=1 and D^2 "
+        f"at t=2 bit for bit; the {COLOR_HUBS} hubs' plane rows equal the "
+        f"plain sketches of their exact color classes bit for bit; count "
+        f"at t=1 against exact: relative errors {min(errs):+.4f} .. "
+        f"{max(errs):+.4f}, root mean square {rms:.4f} (gate "
+        f"{COLOR_RMS_BOUND} x rel_std = {COLOR_RMS_BOUND * rel_std(P):.4f})"
+        f", {len(misses)} of {len(errs)} outside 4 x rel_std = {bound:.4f} "
+        f"{misses} (reported); count_and "
+        f"{[round(v, 1) for v in inter]} for {ands}; launches "
+        f"{_build.launch_counts()}")
+    return _build.launch_counts()
+
+
+def kron_phase(torch, np):
+    """Phase 9k: the Kronecker graph C = A x A, A = rmat(KRON_FACTOR_SCALE,
+    8, seed=0), with exact per-edge triangle counts from
+    ``kron_edge_triangles`` (their total must be KRON_TRIANGLES), launch
+    counters zeroed just before ``engine.build`` and
+    ``triangle_heavy_hitters(k=TRI_K, mode="edge")``: finite descending
+    values, real edges, ``ertl_stats`` launched; the top-k recall against
+    the exact counts (ties at the k-th count included) and the relative
+    error of the estimated total are reported, not gated. Returns the
+    launch counts."""
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.graph import exact, generators
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    f = generators.rmat(KRON_FACTOR_SCALE, 8, seed=0)
+    nf = 1 << KRON_FACTOR_SCALE
+    edges = generators.kronecker_edges(f, nf, f, nf)
+    n = nf * nf
+    truth = exact.kron_edge_triangles(f, nf, edges)
+    t_gen = time.perf_counter() - t0
+    total_exact = int(truth.sum()) // 3
+    if total_exact != KRON_TRIANGLES:
+        fail(f"kron: {total_exact} triangles, expected {KRON_TRIANGLES}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    eng = engine.build(edges, n, HLLConfig(p=P), device=DEVICE)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    total, vals, top = eng.triangle_heavy_hitters(TRI_K, mode="edge")
+    secs = time.perf_counter() - t0
+    counts = _build.launch_counts()
+    if not (np.isfinite(vals).all() and len(vals) == TRI_K
+            and np.all(np.diff(vals) <= 0)):
+        fail("kron: triangle heavy hitters are not finite and descending")
+    keys = edges[:, 0].astype(np.int64) * n + edges[:, 1]
+    got = top[:, 0].astype(np.int64) * n + top[:, 1]
+    if not np.isin(got, keys).all():
+        fail("kron: triangle heavy hitters returned a pair that is not an "
+             "edge")
+    if counts["ertl_stats"] == 0:
+        fail(f"kron: the triangle path skipped ertl_stats: {counts}")
+    kth = np.sort(truth)[-TRI_K]
+    recall = float(np.isin(got, keys[truth >= kth]).sum()) / TRI_K
+    log(f"kron: C = A x A, A = rmat({KRON_FACTOR_SCALE}, 8, seed=0) with "
+        f"{len(f)} edges: n={n}, m={len(edges)}, exact triangles "
+        f"{total_exact} ({t_gen:.1f} s on the host); build {t_build:.3f} s; "
+        f"triangle_heavy_hitters(k={TRI_K}, edge) {secs:.3f} s, "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB; estimated total {total:.1f} (relative error "
+        f"{(total - total_exact) / total_exact:+.4f}); top-{TRI_K} recall "
+        f"{recall:.2f} against exact counts >= {kth} "
+        f"({int((truth >= kth).sum())} edges; reported, not gated); launches "
+        f"{counts}")
+    return counts
 
 
 # ------------------------------------------------------------------ serving
@@ -1951,6 +2273,16 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    from repro_torch import engine
+    defaults = {"REPRO_TORCH_IMPL": (engine.default_impl(), "cuda"),
+                "REPRO_TORCH_LAYOUT": (engine.default_layout(), "byte"),
+                "REPRO_TORCH_FAMILY": (engine.default_family(), "hll")}
+    for var, (got, want) in defaults.items():
+        if got != want:
+            print(f"chip_smoke: {var}={got!r}: the smoke drives the CUDA "
+                  f"kernels on the default {want!r}, unset it",
+                  file=sys.stderr)
+            return 2
     t_start = time.perf_counter()
     card = card_line()
     name = torch.cuda.get_device_name(0)
@@ -1998,8 +2330,15 @@ def main() -> int:
     packed_panel = compare_packed_kernels(torch, np, edges, n, pairs, sets,
                                           skew, panel, report)
     del skew
-    counts, byte_deg = main_path(torch, np, edges, n, pairs, verts, sets,
-                                 panel)
+    counts, byte_deg, hops = main_path(torch, np, edges, n, pairs, verts,
+                                       sets, panel)
+    t_new = time.perf_counter()
+    phases_new = [functional_phase(torch, np, edges, n, panel, byte_deg,
+                                   hops),
+                  colored_phase(torch, np, edges, n, panel)]
+    t_new = time.perf_counter() - t_new
+    del hops
+    torch.cuda.empty_cache()
     t_serve = time.perf_counter()
     phases = [counts, query_server_phase(torch, np, edges, n, sets),
               continuous_phase(torch, np, edges, n, sets, pairs)]
@@ -2024,7 +2363,14 @@ def main() -> int:
     log(f"serving: the five serving phases took {t_serve:.1f} s")
     del edges, ads_eng
     phases.append(triangle_path(torch, np))
+    t0 = time.perf_counter()
+    phases += phases_new + [kron_phase(torch, np)]
+    t_new += time.perf_counter() - t0
+    t0 = time.perf_counter()
     phases.append(small_reference(torch, np))
+    log(f"small reference: {time.perf_counter() - t0:.1f} s")
+    log(f"functional core, colored and Kronecker phases: {t_new:.1f} s "
+        f"together")
     for row in rows:
         row["launches"] = sum(c[row["name"]] for c in phases)
     idle = [row["name"] for row in rows if row["launches"] == 0]

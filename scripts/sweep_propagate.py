@@ -102,7 +102,7 @@ def main(edges_path: str) -> int:
         return 2
     from repro_torch import engine
     from repro_torch.core.hll import HLLConfig
-    from repro_torch.engine.local import directed_routing
+    from repro_torch.kernels.inputs import directed_routing
     from repro_torch.graph import generators
     from repro_torch.kernels import _build, hll_propagate
 

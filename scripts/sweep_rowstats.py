@@ -132,7 +132,7 @@ def main(edges_path: str, baseline: str | None) -> int:
         return 2
     from repro_torch import engine
     from repro_torch.core.hll import HLLConfig
-    from repro_torch.engine.local import directed_routing
+    from repro_torch.kernels.inputs import directed_routing
     from repro_torch.graph import generators
     from repro_torch.kernels import hip_delta, hll_estimate, ops, packing
 

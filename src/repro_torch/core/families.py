@@ -25,6 +25,7 @@ class _Family:
     Attributes every family defines:
       name: registry coordinate ("hll" | "ads").
       config_cls: the frozen config dataclass.
+      ops: the ops an impl must register to serve the family.
       layouts: register-panel layouts the family's semantics tolerate.
       query_kinds: the query kinds the engine may answer for this family.
       default_iters: Newton iterations of the intersection MLE by default
@@ -33,6 +34,7 @@ class _Family:
 
     name = ""
     config_cls = None
+    ops = ()
     layouts = ("byte",)
     query_kinds = ()
     default_iters = None
@@ -60,6 +62,8 @@ class HLLFamily(_Family):
 
     name = "hll"
     config_cls = hll_mod.HLLConfig
+    ops = ("accumulate", "propagate", "estimate", "ertl_stats",
+           "union_estimate", "intersection_stats")
     layouts = ("byte", "packed")
     query_kinds = ("degrees", "union", "intersection", "mixed",
                    "neighborhood", "triangle")
@@ -78,10 +82,12 @@ class HLLFamily(_Family):
                                                      iters=iters)
 
     def triangle_local(self, regs, n, cfg, edges, k, mode, iters,
-                       layout="byte"):
+                       layout="byte", impl="cuda"):
         """Algorithms 4/5 over a single-device register panel; a packed
-        panel is read packed, block by block (``core.degreesketch``)."""
-        sketch = dsk.DegreeSketch(regs=regs, n=n, cfg=cfg, layout=layout)
+        panel is read packed, block by block (``core.degreesketch``),
+        through the kernels of ``impl``."""
+        sketch = dsk.DegreeSketch(regs=regs, n=n, cfg=cfg, layout=layout,
+                                  impl=impl)
         if mode == "edge":
             return dsk.triangle_heavy_hitters(sketch, edges, k, iters=iters)
         if mode == "vertex":
@@ -102,6 +108,7 @@ class ADSFamily(_Family):
 
     name = "ads"
     config_cls = ads_mod.ADSConfig
+    ops = ("accumulate", "propagate", "estimate", "hip_delta")
     layouts = ("byte",)
     query_kinds = ("degrees", "neighborhood", "distance_histogram",
                    "closeness", "effective_diameter")

@@ -8,15 +8,29 @@ pure functions of the per-row harmonic statistics ``(s, z)`` = (sum of
 2^-reg, number of zero registers), so the fused estimate kernels never
 hand registers back.
 All arithmetic is float32, as in the JAX package.
+
+The functional API of the JAX package (``empty``, ``insert``,
+``insert_table``, ``merge``, ``estimate*``, ``degree_estimates``) runs
+through the ported kernels on the tensors' device: the inserts launch
+``hll_accumulate``, the estimates ``hll_estimate_stats`` followed by the
+named combination. The accumulate kernel writes in place, so the inserts
+clone the caller's registers first and never change a tensor passed in.
+``kernels.ops`` imports this module, so the kernels are imported inside
+the functions.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
-__all__ = ["HLLConfig", "empty_table", "alpha", "estimate_from_stats",
-           "rel_std"]
+from repro_torch.kernels.inputs import resolve_device
+
+__all__ = ["HLLConfig", "empty", "empty_table", "insert", "insert_table",
+           "merge", "alpha", "estimate", "estimate_from_stats",
+           "estimate_flajolet", "estimate_beta", "estimate_union",
+           "degree_estimates", "rel_std"]
 
 
 @dataclass(frozen=True)
@@ -44,10 +58,22 @@ class HLLConfig:
         """Bits of the rho window, ``64 - p``; registers reach ``q + 1``."""
         return 64 - self.p
 
+    @property
+    def max_register(self) -> int:
+        """The largest value a register takes, ``q + 1``."""
+        return self.q + 1
+
 
 def rel_std(p: int) -> float:
     """HLL standard error ~= 1.04 / sqrt(r)  (Eq. 16)."""
     return 1.04 / float(1 << p) ** 0.5
+
+
+def empty(cfg: HLLConfig, device=None) -> torch.Tensor:
+    """One empty sketch ``uint8[r]`` on ``device`` (``None``: the card,
+    which must be present)."""
+    return torch.zeros((cfg.r,), dtype=torch.uint8,
+                       device=resolve_device(device))
 
 
 def empty_table(n: int, cfg: HLLConfig, layout: str = "byte",
@@ -113,3 +139,109 @@ def estimate_from_stats(s: torch.Tensor, z: torch.Tensor,
     if cfg.estimator == "beta":
         return _combine_beta(s, z, cfg)
     raise ValueError(f"unknown estimator {cfg.estimator!r}")
+
+
+def _as_keys(keys, device: torch.device) -> torch.Tensor:
+    """Keys as a contiguous uint32[E] tensor on ``device``, reduced mod
+    2^32 as the JAX package's ``uint32`` cast reduces them."""
+    if isinstance(keys, torch.Tensor):
+        if keys.dtype != torch.uint32:
+            keys = keys.reshape(-1).to(torch.int64) & 0xFFFFFFFF
+            keys = torch.where(keys >= 1 << 31, keys - (1 << 32), keys)
+            keys = keys.to(torch.int32).view(torch.uint32)
+        return keys.reshape(-1).to(device).contiguous()
+    arr = np.ascontiguousarray(np.asarray(keys).reshape(-1).astype(np.uint32))
+    return torch.from_numpy(arr.view(np.int32)).to(device).view(torch.uint32)
+
+
+def _as_rows(rows, device: torch.device,
+             dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Row ids or a mask (a tensor or an array) as a contiguous 1-D
+    tensor of ``dtype`` on ``device``."""
+    t = rows if isinstance(rows, torch.Tensor) else torch.from_numpy(
+        np.ascontiguousarray(rows))
+    return t.reshape(-1).to(device=device, dtype=dtype).contiguous()
+
+
+def insert(regs: torch.Tensor, keys, cfg: HLLConfig) -> torch.Tensor:
+    """Insert a batch of keys into one sketch ``uint8[r]``; returns a new
+    sketch (one ``hll_accumulate`` launch on a clone of ``regs``)."""
+    out = regs.reshape(1, cfg.r).clone(memory_format=torch.contiguous_format)
+    keys = _as_keys(keys, out.device)
+    rows = torch.zeros(keys.shape, dtype=torch.int32, device=out.device)
+    from repro_torch.kernels import ops
+    return ops.accumulate(out, rows, keys, cfg).reshape(cfg.r)
+
+
+def insert_table(regs: torch.Tensor, rows, keys, cfg: HLLConfig, *,
+                 mask=None) -> torch.Tensor:
+    """Insert ``keys[i]`` into sketch ``regs[rows[i]]`` (scatter-max);
+    returns a new table, ``regs`` unchanged.
+
+    Algorithm 1's INSERT(D[x], y) over an edge block: rows = vertices x,
+    keys = neighbor ids y. ``mask=False`` entries are dropped. One
+    ``hll_accumulate`` launch on a clone of ``regs``.
+    """
+    out = regs.clone(memory_format=torch.contiguous_format)
+    rows = _as_rows(rows, out.device)
+    keys = _as_keys(keys, out.device)
+    if mask is not None:
+        mask = _as_rows(mask, out.device, torch.bool)
+    from repro_torch.kernels import ops
+    return ops.accumulate(out, rows, keys, cfg, mask=mask)
+
+
+def merge(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Closed union operator: element-wise register max (Algorithm 6
+    MERGE), a new tensor."""
+    return torch.maximum(a, b)
+
+
+def _row_stats(regs: torch.Tensor, r: int,
+               ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(s, z)`` of every sketch of ``regs`` (..., r) from one
+    ``hll_estimate_stats`` launch, each shaped like the leading axes."""
+    from repro_torch.kernels.hll_estimate import hll_estimate_stats
+    lead = regs.shape[:-1]
+    if regs.shape[-1] != r:
+        raise ValueError(f"the last axis holds {regs.shape[-1]} registers, "
+                         f"the config {r}")
+    rows = regs.reshape(-1, r)
+    if not rows.is_contiguous() or rows.data_ptr() % 8:
+        rows = rows.clone(memory_format=torch.contiguous_format)
+    stats = hll_estimate_stats(rows)
+    return stats[:, 0].reshape(lead), stats[:, 1].reshape(lead)
+
+
+def estimate_flajolet(regs: torch.Tensor, cfg: HLLConfig) -> torch.Tensor:
+    """Flajolet harmonic-mean estimator (Eq. 14) + linear counting, per
+    sketch of ``regs`` (..., r), float32 of the leading shape. Ignores
+    ``cfg.estimator``."""
+    return _combine_flajolet(*_row_stats(regs, cfg.r), cfg)
+
+
+def estimate_beta(regs: torch.Tensor, cfg: HLLConfig) -> torch.Tensor:
+    """LogLogBeta estimator (Eq. 17) per sketch of ``regs`` (..., r),
+    float32 of the leading shape. Ignores ``cfg.estimator``."""
+    return _combine_beta(*_row_stats(regs, cfg.r), cfg)
+
+
+def estimate(regs: torch.Tensor, cfg: HLLConfig) -> torch.Tensor:
+    """Cardinality estimate by ``cfg.estimator`` for sketch(es) (..., r);
+    a single sketch ``(r,)`` gives a 0-d tensor."""
+    if cfg.estimator == "flajolet":
+        return estimate_flajolet(regs, cfg)
+    if cfg.estimator == "beta":
+        return estimate_beta(regs, cfg)
+    raise ValueError(f"unknown estimator {cfg.estimator!r}")
+
+
+def estimate_union(a: torch.Tensor, b: torch.Tensor,
+                   cfg: HLLConfig) -> torch.Tensor:
+    """|A ∪ B| via the closed union operator."""
+    return estimate(merge(a, b), cfg)
+
+
+def degree_estimates(table: torch.Tensor, cfg: HLLConfig) -> torch.Tensor:
+    """Degree query over a sketch table ``uint8[n, r]``, float32[n]."""
+    return estimate(table, cfg)

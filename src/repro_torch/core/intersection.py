@@ -30,7 +30,8 @@ from repro_torch.core.hll import HLLConfig
 from repro_torch.kernels import ops, packing
 
 __all__ = ["ertl_stats", "log_likelihood", "mle_cardinalities",
-           "mle_intersection", "mle_from_stats", "estimate_from_pair_stats",
+           "mle_intersection", "inclusion_exclusion", "domination_flags",
+           "mle_from_stats", "estimate_from_pair_stats",
            "hessian_overflow_share", "NEWTON_ITERS"]
 
 #: Newton iterations when the caller passes none (``_NEWTON_ITERS`` in JAX)
@@ -39,14 +40,16 @@ _TINY = 1e-38
 
 
 def ertl_stats(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
-               layout: str = "byte") -> torch.Tensor:
+               layout: str = "byte", impl: str = "cuda") -> torch.Tensor:
     """Eq. 19 count statistics of register rows a, b: ``uint8[E, w]``
     (w = r, or r/2 on the packed layout).
 
     Returns ``float32[E, 5, q+2]`` stacked as [c_a_lt, c_a_gt, c_b_lt,
-    c_b_gt, c_eq], from the ``ertl_stats`` kernel.
+    c_b_gt, c_eq], from the ``ertl_stats`` kernel (``impl="ref"``: its
+    plain version).
     """
-    return ops.ertl_stats(a.contiguous(), b.contiguous(), cfg, layout=layout)
+    return ops.ertl_stats(a.contiguous(), b.contiguous(), cfg, layout=layout,
+                          impl=impl)
 
 
 def _survival_weights(q: int, device) -> tuple[torch.Tensor, torch.Tensor]:
@@ -262,6 +265,7 @@ def _initial_theta(ea: torch.Tensor, eb: torch.Tensor,
 
 def mle_cardinalities(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
                       iters: int = NEWTON_ITERS, layout: str = "byte",
+                      impl: str = "cuda",
                       ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """MLE (|A\\B|, |B\\A|, |A ∩ B|) for register rows a, b: ``uint8[E, w]``.
 
@@ -270,20 +274,40 @@ def mle_cardinalities(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
     ``(s, z)`` over a, b and their register-wise max, as the JAX package
     takes ``hll.estimate`` of a, b and ``hll.merge(a, b)``. Packed rows
     merge nibble by nibble (``packing.merge_rows``); a byte-wise max of
-    packed bytes would be wrong.
+    packed bytes would be wrong. ``impl="ref"`` runs the kernels' plain
+    versions instead.
     """
     a, b = a.contiguous(), b.contiguous()
-    ea, eb, eu = (ops.estimate(rows, cfg, layout=layout)
+    ea, eb, eu = (ops.estimate(rows, cfg, layout=layout, impl=impl)
                   for rows in (a, b, packing.merge_rows(a, b, layout)))
-    return mle_from_stats(ertl_stats(a, b, cfg, layout), ea, eb, eu, cfg,
-                          iters)
+    return mle_from_stats(ertl_stats(a, b, cfg, layout, impl), ea, eb, eu,
+                          cfg, iters)
 
 
 def mle_intersection(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
-                     iters: int = NEWTON_ITERS,
-                     layout: str = "byte") -> torch.Tensor:
+                     iters: int = NEWTON_ITERS, layout: str = "byte",
+                     impl: str = "cuda") -> torch.Tensor:
     """|A ∩ B| via the joint MLE, the paper's T̃(xy) primitive (Eq. 10)."""
-    return mle_cardinalities(a, b, cfg, iters, layout)[2]
+    return mle_cardinalities(a, b, cfg, iters, layout, impl)[2]
+
+
+def inclusion_exclusion(a: torch.Tensor, b: torch.Tensor,
+                        cfg: HLLConfig) -> torch.Tensor:
+    """|A ∩ B| ~= |A| + |B| - |A ∪ B| (Eq. 18, sign-corrected), per pair
+    of sketches (..., r); can be < 0."""
+    return (hll.estimate(a, cfg) + hll.estimate(b, cfg)
+            - hll.estimate(hll.merge(a, b), cfg))
+
+
+def domination_flags(a: torch.Tensor, b: torch.Tensor,
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(A dominates B, A strictly dominates B) per Appendix B, per pair of
+    sketches (..., r): every register of A at least B's; and every
+    register of A above B's or B's empty, with B not empty."""
+    ai, bi = a.to(torch.int32), b.to(torch.int32)
+    dom = (ai >= bi).all(dim=-1)
+    strict = ((ai > bi) | (bi == 0)).all(dim=-1) & (bi > 0).any(dim=-1)
+    return dom, strict
 
 
 def hessian_overflow_share(stats: torch.Tensor, sz: torch.Tensor,

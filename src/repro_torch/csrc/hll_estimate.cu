@@ -26,9 +26,10 @@
 //   rolled loop over its bytes instead, whose terms x > 27 add their
 //   float32 2^-x in float64.
 // The row's sum is rounded to float32 once, so s does not depend on the
-// order of summation; the plain version's float32 sum is within
-// rtol=1e-6 of it. A panel that is only 8-byte aligned, or rows of 8
-// bytes, take 8-byte loads instead. The wrapper guarantees rows of a
+// order of summation; the plain version sums in float64 and rounds once,
+// which equals it bit for bit while every register is <= 52 - p. A panel
+// that is only 8-byte aligned, or rows of 8 bytes, take 8-byte loads
+// instead. The wrapper guarantees rows of a
 // power of two >= 8 bytes and an 8-byte-aligned panel.
 //
 // Packed layout (hll_estimate_stats_packed): the row is r/2 bytes, eight

@@ -29,6 +29,8 @@
     small.save(path)                               # half the register bytes
     as_byte = engine.load(path, layout="byte")     # exact unpack
 
+    plain = engine.build(edges, n, HLLConfig(p=8), impl="ref")  # no kernels
+
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, which runs every kernel's plain PyTorch version); with
 ``device=None`` and no card they raise ``RuntimeError`` rather than
@@ -40,8 +42,24 @@ see ROADMAP.md); ``repro_torch.serve`` serves an engine to concurrent
 clients. ``engine.convert`` carries a JAX engine's state across as numpy
 arrays, and checkpoints cross between the packages as files, in either
 layout.
+
+``impl`` selects the kernel implementation (``kernels.registry``):
+"cuda", the default, launches the CUDA kernels on the card (and runs
+their plain versions on the CPU); "ref" runs the plain PyTorch versions
+on whichever device and launches nothing. When the caller passes none,
+``impl``, ``layout`` and ``family`` come from the ``REPRO_TORCH_IMPL``,
+``REPRO_TORCH_LAYOUT`` and ``REPRO_TORCH_FAMILY`` environment variables,
+read on each call (:func:`default_impl`, :func:`default_layout`,
+:func:`default_family`). The port never reads the JAX package's
+``REPRO_IMPL``, ``REPRO_LAYOUT`` and ``REPRO_FAMILY``: their values name
+that package's kernels ("pallas") and its test legs, so a shell set up
+for the JAX package leaves the port on its kernels. The JAX package's
+default impl is "ref" because its Pallas kernels run in interpret mode
+off a TPU; the port's is "cuda".
 """
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -52,7 +70,8 @@ from repro_torch.engine.local import LocalEngine
 from repro_torch.kernels import packing, registry
 
 __all__ = ["SketchEngine", "LocalEngine", "open", "build", "load",
-           "default_device"]
+           "default_device", "default_impl", "default_layout",
+           "default_family"]
 
 
 def default_device() -> torch.device:
@@ -63,15 +82,37 @@ def default_device() -> torch.device:
     return resolve_device(None)
 
 
+def default_impl() -> str:
+    """Kernel implementation used when callers pass no ``impl=``: the
+    ``REPRO_TORCH_IMPL`` environment variable, read on each call, or
+    "cuda"."""
+    return os.environ.get("REPRO_TORCH_IMPL", "cuda")
+
+
+def default_layout() -> str:
+    """Register layout used when callers pass no ``layout=``: the
+    ``REPRO_TORCH_LAYOUT`` environment variable, read on each call, or
+    "byte". ``load`` takes the saved layout instead."""
+    return os.environ.get("REPRO_TORCH_LAYOUT", "byte")
+
+
+def default_family() -> str:
+    """Sketch family used when callers pass neither ``family=`` nor a
+    config: the ``REPRO_TORCH_FAMILY`` environment variable, read on each
+    call, or "hll". ``load`` takes the saved family instead."""
+    return os.environ.get("REPRO_TORCH_FAMILY", "hll")
+
+
 def _resolve_cfg(cfg, family: str | None):
     """The config to build with, from what the caller passed.
 
     The config's type is authoritative: it picks its family, and a
     ``family`` that disagrees raises ``TypeError``. Without a config,
-    ``family`` (default "hll") picks its family's default config.
+    ``family`` (default :func:`default_family`) picks its family's
+    default config.
     """
     if cfg is None:
-        return registry.family(family or "hll").default_config()
+        return registry.family(family or default_family()).default_config()
     fam = registry.family_of(cfg)
     if family is not None and family != fam.name:
         want = registry.family(family).config_cls.__name__
@@ -81,7 +122,8 @@ def _resolve_cfg(cfg, family: str | None):
     return cfg
 
 
-def open(n: int, cfg=None, *, layout: str = "byte", family: str | None = None,
+def open(n: int, cfg=None, *, layout: str | None = None,
+         family: str | None = None, impl: str | None = None,
          device=None) -> LocalEngine:
     """An empty engine over vertex universe [0, n), ready to ingest.
 
@@ -91,18 +133,23 @@ def open(n: int, cfg=None, *, layout: str = "byte", family: str | None = None,
         ``ADSConfig``). Default: the family's default config.
       layout: register layout, "byte" (one register a byte) or "packed"
         (two 4-bit registers a byte, saturating at 15; HLL only, an ADS
-        config raises ``ValueError``).
+        config raises ``ValueError``); default :func:`default_layout`.
       family: "hll" or "ads", used when no ``cfg`` names one (default
-        "hll"); a ``cfg`` of another family raises ``TypeError``.
+        :func:`default_family`); a ``cfg`` of another family raises
+        ``TypeError``.
+      impl: kernel implementation, "cuda" or "ref" (default
+        :func:`default_impl`); any other name raises ``ValueError``
+        before any allocation.
       device: "cuda", "cpu" or a torch device; ``None`` means the card.
     """
-    return LocalEngine.open(n, _resolve_cfg(cfg, family), layout=layout,
-                            device=device)
+    return LocalEngine.open(n, _resolve_cfg(cfg, family),
+                            layout=layout or default_layout(),
+                            impl=impl or default_impl(), device=device)
 
 
 def build(edges: np.ndarray, n: int | None = None, cfg=None, *,
-          layout: str = "byte", family: str | None = None,
-          device=None) -> LocalEngine:
+          layout: str | None = None, family: str | None = None,
+          impl: str | None = None, device=None) -> LocalEngine:
     """Accumulate a sketch table (Algorithm 1) and return a query engine.
 
     ``open(n, cfg)`` plus one ``ingest(edges)``, so the registers are
@@ -113,19 +160,22 @@ def build(edges: np.ndarray, n: int | None = None, cfg=None, *,
     edges = np.asarray(edges)
     if n is None:
         n = int(edges.max()) + 1 if len(edges) else 1
-    return open(n, cfg, layout=layout, family=family,
+    return open(n, cfg, layout=layout, family=family, impl=impl,
                 device=device).ingest(edges)
 
 
 def load(path: str, *, step: int | None = None, layout: str | None = None,
-         family: str | None = None, device=None) -> LocalEngine:
+         family: str | None = None, impl: str | None = None,
+         device=None) -> LocalEngine:
     """Restore a saved engine onto the local backend; queries answer as
     before the save, and ingestion resumes where it stopped.
 
     Reads checkpoints of this package and of the JAX package, whichever
     backend saved them: the register rows are canonical, so a sharded
-    save loads onto one device. The manifest's ``impl`` and ``shards``
-    say how the JAX package ran and are not needed here. A saved
+    save loads onto one device. The manifest's ``impl`` (the JAX
+    package's "ref" or "pallas") and ``shards`` say how the JAX package
+    ran and are ignored here: the engine takes ``impl``, or
+    :func:`default_impl`. A saved
     ``replica_ids`` leaf is installed through ``replicate`` and written
     back by the next ``save``.
 
@@ -139,6 +189,7 @@ def load(path: str, *, step: int | None = None, layout: str | None = None,
       family: an assertion, not an override: a manifest of another family
         raises :class:`~repro_torch.ckpt.checkpoint.FamilyMismatch`
         naming both.
+      impl: as in :func:`open`.
       device: as in :func:`open`; ``None`` means the card.
 
     Raises ``ValueError`` for a file that is no engine checkpoint, and
@@ -160,15 +211,16 @@ def load(path: str, *, step: int | None = None, layout: str | None = None,
                 else manifest_family(extra))
     saved = packing.validate_layout(extra.get("layout", "byte"))
     layout = packing.validate_layout(layout or saved)
-    tree = restore_checkpoint(path, step)
     cfg = registry.family(fam_name).config_from_dict(extra["cfg"])
-    registry.resolve(cfg, layout)  # ADS on packed raises before any copy
+    impl = impl or default_impl()
+    registry.resolve(cfg, layout, impl)  # fails before any file is read
+    tree = restore_checkpoint(path, step)
     edges = (np.asarray(tree["edges"], dtype=np.int32).reshape(-1, 2)
              if "edges" in tree else None)
     regs = packing.to_layout(torch.from_numpy(
         np.asarray(tree["regs"], dtype=np.uint8)), saved, layout)
     eng = LocalEngine.from_regs(regs, int(extra["n"]), cfg, edges=edges,
-                                layout=layout, device=device)
+                                layout=layout, impl=impl, device=device)
     if "replica_ids" in tree:
         eng.replicate(np.asarray(tree["replica_ids"], dtype=np.int64))
     return eng

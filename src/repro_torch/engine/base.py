@@ -62,8 +62,10 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.core.degreesketch import pad_vertices
 from repro_torch.engine import plans
-from repro_torch.kernels import packing, registry
+from repro_torch.kernels import inputs, packing, registry
+from repro_torch.kernels.inputs import resolve_device
 
 #: the ``format`` a checkpoint of an engine records (the JAX package's)
 ENGINE_FORMAT = "degreesketch-engine-v1"
@@ -85,27 +87,6 @@ class SnapshotFrozen(RuntimeError):
 
 class UnsupportedQuery(ValueError):
     """Raised for a query kind the engine's sketch family cannot answer."""
-
-
-def resolve_device(device=None) -> torch.device:
-    """The engine device: ``None`` means the card, which must be present.
-
-    Entry points never carry on on the CPU by themselves: asking for (or
-    defaulting to) ``cuda`` without a card raises ``RuntimeError``.
-    """
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "no CUDA device is available; pass device='cpu' to run the "
-            "plain PyTorch versions of the kernels on the CPU")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"device must be cuda or cpu, got {dev}")
-    return dev
-
-
-def pad_vertices(n: int, multiple: int) -> int:
-    """Round ``n`` up to the next multiple (register-table row padding)."""
-    return ((n + multiple - 1) // multiple) * multiple
 
 
 def validate_t_max(t_max) -> int:
@@ -159,20 +140,18 @@ class SketchEngine(abc.ABC):
 
     backend = "abstract"
 
-    #: undirected edges per accumulate launch; ``ingest`` splits larger
-    #: blocks. The JAX package's 2^15 serves XLA's static shape buckets;
-    #: the CUDA kernel takes any length, so a chunk here is as large as
-    #: host and device memory allow cheaply (32 MB of host ids, 64 MB of
-    #: directed ids on the device) and a 64M-edge build takes 16 launches
-    INGEST_BLOCK = 1 << 22
+    #: undirected edges per accumulate launch (``kernels.inputs``);
+    #: ``ingest`` splits larger blocks
+    INGEST_BLOCK = inputs.INGEST_BLOCK
 
     #: at most this many D^t panels are kept (~n_pad * r bytes each);
     #: deeper horizons are computed transiently
     MAX_CACHED_PANELS = 8
 
     def __init__(self, regs: torch.Tensor, n: int, cfg,
-                 edges: np.ndarray | None, layout: str = "byte"):
-        self.kernels = registry.resolve(cfg, layout=layout)
+                 edges: np.ndarray | None, layout: str = "byte",
+                 impl: str = "cuda"):
+        self.kernels = registry.resolve(cfg, layout=layout, impl=impl)
         self.family = registry.family(self.kernels.family)
         self._regs = regs
         self.n = int(n)
@@ -199,6 +178,12 @@ class SketchEngine(abc.ABC):
     def device(self) -> torch.device:
         """The device the register panel lives on."""
         return self._regs.device
+
+    @property
+    def impl(self) -> str:
+        """Kernel implementation: "cuda" (the kernels on a CUDA panel, their
+        plain versions on a CPU one) or "ref" (the plain versions)."""
+        return self.kernels.impl
 
     @property
     def n_pad(self) -> int:
@@ -464,12 +449,14 @@ class SketchEngine(abc.ABC):
         """Resolve a query plan through the shared plan cache.
 
         The key is the JAX package's ``(query, bucket, cfg, backend,
-        layout, extra, family)``: engines with identical coordinates
-        share plans, and a plan never closes over one engine's state.
+        impl, layout, extra, family)``: engines with identical
+        coordinates share plans, and a plan never closes over one
+        engine's state.
         """
         key = plans.PlanKey(query=query, bucket=tuple(bucket), cfg=self.cfg,
-                            backend=self.backend, layout=self.layout,
-                            extra=tuple(extra), family=self.kernels.family)
+                            backend=self.backend, impl=self.impl,
+                            layout=self.layout, extra=tuple(extra),
+                            family=self.kernels.family)
         return self._plan_cache.get(key, builder)
 
     # ------------------------------------------------------------ queries

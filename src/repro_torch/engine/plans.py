@@ -210,6 +210,8 @@ class PlanKey:
       bucket: the padded, bucketed input shape.
       cfg: the sketch config (a frozen dataclass).
       backend: engine backend ("local").
+      impl: kernel implementation ("cuda" | "ref"); engines of different
+        impls never share a plan.
       layout: register layout ("byte" | "packed").
       extra: further specialization (estimator method and iterations,
         the kinds of a mixed batch).
@@ -220,6 +222,7 @@ class PlanKey:
     bucket: tuple = ()
     cfg: object = None
     backend: str = "local"
+    impl: str = "cuda"
     layout: str = "byte"
     extra: tuple = ()
     family: str = "hll"

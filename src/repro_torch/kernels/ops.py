@@ -26,6 +26,12 @@ packed kernel (rows of r/2 bytes, two 4-bit registers a byte), where the
 JAX package's plain versions unpack or merge nibble planes
 (``ops.py:77-90, 152-160, 191-196, 229-234, 270-276, 313-317``).
 
+Every op also takes ``impl``, the kernel implementation
+(``kernels.registry``): "cuda" calls the wrapper, which launches the
+kernel on a CUDA tensor and runs its plain version on a CPU tensor;
+"ref" calls the plain version (``kernels/ref.py``, each wrapper's
+``plain``) on whichever device, and never launches a kernel.
+
 The CUDA kernels need no block padding (each masks its own ragged edge),
 and their launch shapes are constants in ``csrc/``; the autotune table of
 the JAX package is not ported yet.
@@ -37,6 +43,13 @@ import torch
 from repro_torch.core import ads, hll
 from repro_torch.core.hll import HLLConfig
 from repro_torch.kernels import _build
+from repro_torch.kernels import ertl_stats as _ertl
+from repro_torch.kernels import hip_delta as _hip
+from repro_torch.kernels import hll_accumulate as _acc
+from repro_torch.kernels import hll_estimate as _est
+from repro_torch.kernels import hll_propagate as _prop
+from repro_torch.kernels import intersection_stats as _pair
+from repro_torch.kernels import union_estimate as _union
 from repro_torch.kernels.ertl_stats import ertl_stats as _ertl_stats
 from repro_torch.kernels.hip_delta import hip_delta_rows
 from repro_torch.kernels.hll_accumulate import hll_accumulate
@@ -48,27 +61,40 @@ from repro_torch.kernels.intersection_stats import (
 from repro_torch.kernels.union_estimate import union_estimate_stats
 
 __all__ = ["accumulate", "propagate", "estimate", "union_estimate",
-           "intersection_stats", "ertl_stats", "hip_delta"]
+           "intersection_stats", "ertl_stats", "hip_delta", "IMPLS"]
+
+#: the kernel implementations every op serves
+IMPLS = ("cuda", "ref")
+
+
+def _plain(impl: str) -> bool:
+    """True for ``impl="ref"`` (the plain version on any device), False
+    for "cuda" (the wrapper); ``ValueError`` for any other name."""
+    if impl not in IMPLS:
+        raise ValueError(f"impl must be one of {IMPLS}, got {impl!r}")
+    return impl == "ref"
 
 
 def accumulate(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
                cfg: HLLConfig, mask: torch.Tensor | None = None,
-               layout: str = "byte") -> torch.Tensor:
+               layout: str = "byte", impl: str = "cuda") -> torch.Tensor:
     """Insert keys[e] into sketch regs[rows[e]] in place (Algorithm 1);
     ``mask=None`` inserts every edge (the kernel then reads no mask)."""
-    return hll_accumulate(regs, rows, keys, mask, p=cfg.p, seed=cfg.seed,
-                          layout=layout)
+    fn = _acc.plain if _plain(impl) else hll_accumulate
+    return fn(regs, rows, keys, mask, p=cfg.p, seed=cfg.seed, layout=layout)
 
 
 def propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
               mask: torch.Tensor | None = None,
-              layout: str = "byte") -> torch.Tensor:
+              layout: str = "byte", impl: str = "cuda") -> torch.Tensor:
     """One Algorithm 2 merge pass into a fresh panel, over edges in any
     order; ``mask`` (bool[E]) drops the slots where it is False. A
     dst-sorted routing, as the engine builds it, is launched as it is."""
     if mask is not None:
         _build.check_ids(mask, "mask", regs, src.shape[0], dtype=torch.bool)
         src, dst = src[mask], dst[mask]
+    if _plain(impl):
+        return _prop.plain(regs, src, dst, layout=layout)
     if _build.check_device(regs, "regs"):
         if not dst_sorted(dst):
             src, dst = sort_routing(src, dst)
@@ -77,42 +103,50 @@ def propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     return hll_propagate(regs, src, dst, layout=layout)
 
 
-def estimate(regs: torch.Tensor, cfg, layout: str = "byte") -> torch.Tensor:
+def estimate(regs: torch.Tensor, cfg, layout: str = "byte",
+             impl: str = "cuda") -> torch.Tensor:
     """Cardinality estimate per sketch row (uint8[N, w]) by ``cfg.estimator``;
     an ``ADSConfig`` gets the Flajolet combination (the HIP curve's
     plain floor)."""
-    stats = hll_estimate_stats(regs, layout=layout)
+    fn = _est.plain if _plain(impl) else hll_estimate_stats
+    stats = fn(regs, layout=layout)
     if isinstance(cfg, ads.ADSConfig):
         cfg = ads._plain_cfg(cfg)
     return hll.estimate_from_stats(stats[:, 0], stats[:, 1], cfg)
 
 
 def union_estimate(regs: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
-                   cfg: HLLConfig, layout: str = "byte") -> torch.Tensor:
+                   cfg: HLLConfig, layout: str = "byte",
+                   impl: str = "cuda") -> torch.Tensor:
     """|∪ N(x)| per row of a padded ``(ids int32[B, L], mask bool[B, L])``
     set panel, by ``cfg.estimator``; masked lanes merge nothing."""
-    stats = union_estimate_stats(regs, ids, mask, layout=layout)
+    fn = _union.plain if _plain(impl) else union_estimate_stats
+    stats = fn(regs, ids, mask, layout=layout)
     return hll.estimate_from_stats(stats[:, 0], stats[:, 1], cfg)
 
 
 def intersection_stats(regs: torch.Tensor, pairs: torch.Tensor,
                        cfg: HLLConfig, layout: str = "byte",
+                       impl: str = "cuda",
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused T̃(xy) pair statistics over ``(B, 2)`` int32 pair lanes."""
-    return _intersection_stats(regs, pairs[:, 0].contiguous(),
-                               pairs[:, 1].contiguous(), cfg.q, layout=layout)
+    fn = _pair.plain if _plain(impl) else _intersection_stats
+    return fn(regs, pairs[:, 0].contiguous(), pairs[:, 1].contiguous(), cfg.q,
+              layout=layout)
 
 
 def ertl_stats(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
-               layout: str = "byte") -> torch.Tensor:
+               layout: str = "byte", impl: str = "cuda") -> torch.Tensor:
     """Eq. 19 statistics float32[E, 5, q+2] for paired rows uint8[E, w]."""
-    return _ertl_stats(a, b, cfg.q, layout=layout)
+    fn = _ertl.plain if _plain(impl) else _ertl_stats
+    return fn(a, b, cfg.q, layout=layout)
 
 
 def hip_delta(prev: torch.Tensor, cur: torch.Tensor,
-              layout: str = "byte") -> torch.Tensor:
+              layout: str = "byte", impl: str = "cuda") -> torch.Tensor:
     """Batch-HIP per-row increments between hop panels uint8[N, r]:
     ``sum_j [cur_j > prev_j] * 2**prev_j`` (ADS family, byte layout only)."""
     if layout != "byte":
         raise ValueError(f"hip_delta requires byte layout, got {layout!r}")
-    return hip_delta_rows(prev, cur, layout=layout)
+    fn = _hip.plain if _plain(impl) else hip_delta_rows
+    return fn(prev, cur, layout=layout)

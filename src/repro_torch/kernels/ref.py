@@ -142,7 +142,11 @@ def hll_estimate_ref(regs: torch.Tensor, layout: str = "byte",
     """Harmonic statistics (sum 2^-reg, zero count) per sketch row.
 
     regs: uint8[N, r] (packed: uint8[N, r/2], summed exactly by
-    :func:`packed_stats`) -> (float32[N], float32[N]).
+    :func:`packed_stats`) -> (float32[N], float32[N]). On the byte layout
+    ``s`` is summed in float64 and rounded to float32 once, as the kernel
+    rounds its exact sum once: while every register is at most ``52 - p``
+    (p=8: 44) every partial float64 sum is exact, so the two agree bit
+    for bit, whatever the order of summation.
     """
     n = regs.shape[0]
     s = torch.empty(n, dtype=torch.float32, device=regs.device)
@@ -153,7 +157,7 @@ def hll_estimate_ref(regs: torch.Tensor, layout: str = "byte",
             s[i:i + ROW_CHUNK], z[i:i + ROW_CHUNK] = packed_stats(
                 unpack_rows(blk))
             continue
-        s[i:i + ROW_CHUNK] = torch.exp2(-blk.to(torch.float32)).sum(dim=-1)
+        s[i:i + ROW_CHUNK] = torch.exp2(-blk.to(torch.float64)).sum(dim=-1)
         z[i:i + ROW_CHUNK] = (blk == 0).sum(dim=-1).to(torch.float32)
     return s, z
 

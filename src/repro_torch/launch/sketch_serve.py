@@ -25,10 +25,12 @@ counters — asserting the hot set is non-empty and that sample
 union/intersection answers are bit-identical before and after
 replication, then printing the modeled max-owner gather-traffic ratio.
 
-The port has one backend (local) and one kernel implementation (CUDA,
-with plain versions on the CPU), so the JAX launcher's ``--impl``,
-``--backend`` and ``--shards`` are gone: a sharded request is an
-unrecognized argument and exits with an error rather than running
+``--impl`` picks the kernel implementation, as the JAX launcher's does:
+``cuda`` (the default: the CUDA kernels on the card, their plain
+versions on the CPU) or ``ref`` (the plain PyTorch versions on either
+device, no kernel launched). The port has one backend (local), so the
+JAX launcher's ``--backend`` and ``--shards`` are gone: a sharded request
+is an unrecognized argument and exits with an error rather than running
 locally.
 
     PYTHONPATH=src python -m repro_torch.launch.sketch_serve \
@@ -40,6 +42,8 @@ locally.
         --smoke --zipf 1.3 --replicate 16
     PYTHONPATH=src python -m repro_torch.launch.sketch_serve \
         --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.sketch_serve \
+        --smoke --impl ref
 """
 from __future__ import annotations
 
@@ -121,6 +125,9 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--device", default=None,
                     help="cuda (default: the card; raises without one) "
                          "or cpu (the kernels' plain PyTorch versions)")
+    ap.add_argument("--impl", default="cuda", choices=("cuda", "ref"),
+                    help="kernel implementation: cuda (the kernels on the "
+                         "card) or ref (their plain versions, any device)")
     ap.add_argument("--clients", type=int, default=4,
                     help="concurrent query client threads")
     ap.add_argument("--requests", type=int, default=25,
@@ -165,13 +172,13 @@ def main(argv: list[str] | None = None) -> None:
     edges = gen.rmat(args.scale, args.deg, seed=0)
     n = int(edges.max()) + 1
     hold = len(edges) // 4 if args.ingest_blocks else 0  # live-ingest tail
-    eng = engine.open(n, cfg, device=args.device)
+    eng = engine.open(n, cfg, impl=args.impl, device=args.device)
     eng.ingest(edges[: len(edges) - hold])
     mode = "continuous (snapshot rotation)" if args.continuous else \
         "epoch barrier"
     print(f"graph: n={n} m={len(edges)} (serving with {hold} edges held "
           f"back for live ingest); family={fam.name} backend=local "
-          f"device={eng.device} mode={mode}")
+          f"device={eng.device} impl={eng.impl} mode={mode}")
 
     plans.reset_trace_counts()
     t0 = time.monotonic()
@@ -246,7 +253,8 @@ def main(argv: list[str] | None = None) -> None:
     if args.continuous:
         # rotation must never change an answer: post-flush served answers
         # are bit-identical to a direct engine call on the full edge set
-        direct = engine.build(edges, n, cfg, device=args.device)
+        direct = engine.build(edges, n, cfg, impl=args.impl,
+                              device=args.device)
         assert np.array_equal(served_deg, np.asarray(direct.degrees())), \
             "served degrees diverged from direct engine state"
         _, glob_direct = direct.neighborhood(args.t_max)

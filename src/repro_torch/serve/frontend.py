@@ -415,6 +415,9 @@ class ContinuousServer:
     def _recover_writer(self, err) -> None:
         """Restore the newest complete checkpoint and replay past it.
 
+        The restored engine keeps the live engine's device, layout and
+        impl: a checkpoint carries no impl, and a recovery changes none.
+
         Replay is *exact*: a buffered ingest entry is reapplied only if
         its pre-apply ``m`` cursor is at or beyond the restored engine's
         ``m_ingested`` (entries below it are already inside the
@@ -432,6 +435,8 @@ class ContinuousServer:
             self._ckpt.wait()  # an in-flight write may complete and win
             step = latest_step(self._ft.ckpt_dir)
             eng = engine_mod.load(self._ft.ckpt_dir, step=step,
+                                  layout=self._eng.layout,
+                                  impl=self._eng.impl,
                                   device=self._eng.device)
             try:
                 for entry in self._replay_old + self._replay_new:

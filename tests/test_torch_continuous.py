@@ -385,6 +385,29 @@ class TestContinuousServerFailover:
         np.testing.assert_array_equal(replicated, [1, 2, 3])
         assert inj.fired == [KillHost(host=0, at_block=5)]
 
+    @pytest.mark.parametrize("layout", LAYOUTS)
+    def test_writer_recovery_keeps_the_engines_impl(self, graph, layout,
+                                                    tmp_path):
+        """A checkpoint carries no impl: the restored writer takes the live
+        engine's, so an ``impl="ref"`` server stays on the plain versions
+        (and its layout) after a recovery."""
+        edges, n = graph
+        blocks = np.array_split(edges, 8)
+        ft = FTConfig(ckpt_dir=os.path.join(tmp_path, "ckpt"), ckpt_every=2)
+        inj = FaultInjector(faults=(KillHost(host=0, at_block=5),))
+        with ContinuousServer(engine.open(n, CFG, layout=layout, impl="ref",
+                                          device="cpu"),
+                              ft=ft, faults=inj) as srv:
+            for b in blocks:
+                srv.ingest(b)
+            srv.flush()
+            rt = srv.stats()["runtime"]
+            writer, snap = srv.engine, srv._slot.get()
+        assert rt["recoveries"] == 1
+        assert (writer.impl, writer.layout) == ("ref", layout)
+        assert (snap.impl, snap.layout) == ("ref", layout)
+        assert torch.equal(snap.regs, _build(edges, n, layout).regs)
+
     def test_writer_double_failure_during_replay(self, graph, tmp_path):
         edges, n = graph
         blocks = np.array_split(edges[:1024], 8)

@@ -1034,3 +1034,200 @@ def test_continuous_server_on_the_card(dev):
     assert plans.event_counts().get("lease_clone", 0) == rotations >= 1
     assert first.regs.untyped_storage().data_ptr() != \
         final.regs.untyped_storage().data_ptr()
+
+
+# ------------------------------------------- functional API and impl="ref"
+# The functional core API, the colored planes and Algorithm 2's hop loop on
+# the card against the same calls on the CPU: registers, planes and the
+# harmonic statistics bit for bit (both devices sum exactly and round
+# once); estimates to rtol=1e-6 (``torch.log`` of the linear-counting
+# branch may differ by an ulp between the devices); the MLE of
+# ``count_and`` to 1e-4 of its value. ``impl="ref"`` on the card against
+# ``impl="cuda"`` on the card: bit for bit, with no launch.
+
+def _graph(scale, seed):
+    from repro_torch.graph import generators
+    return generators.rmat(scale, 8, seed=seed), 1 << scale
+
+
+@pytest.mark.parametrize("p", [4, 8, 12])
+def test_functional_hll_on_the_card_matches_the_cpu(dev, p):
+    from repro_torch.core import hll, intersection
+    from repro_torch.core.hll import HLLConfig
+    rng = np.random.default_rng(p + 70)
+    cfg = HLLConfig(p=p)
+    v, e = 301, 40_000
+    base = rng.integers(0, 9, (v, cfg.r)).astype(np.uint8)
+    rows = rng.integers(0, v, e).astype(np.int32)
+    keys = rng.integers(0, 2 ** 32, e, dtype=np.uint64).astype(np.uint32)
+    mask = rng.random(e) < 0.7
+    on = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        regs = torch.from_numpy(base).to(d)
+        tab = hll.insert_table(regs, rows, keys, cfg, mask=mask)
+        assert torch.equal(regs.cpu(), torch.from_numpy(base))  # unchanged
+        one = hll.insert(tab[3], keys[:500], cfg)
+        a, b = tab[: v // 2], tab[v // 2: 2 * (v // 2)]
+        on[name] = dict(
+            tab=tab, one=one, merged=hll.merge(a, b),
+            est=hll.estimate(tab, cfg), one_est=hll.estimate(one, cfg),
+            flaj=hll.estimate_flajolet(tab, cfg),
+            union=hll.estimate_union(a, b, cfg),
+            deg=hll.degree_estimates(tab, cfg),
+            ie=intersection.inclusion_exclusion(a, b, cfg),
+            dom=torch.stack(intersection.domination_flags(a, b)))
+        if p in (8, 12):
+            on[name]["beta"] = hll.estimate_beta(tab, HLLConfig(p=p))
+    for key, want in on["cpu"].items():
+        got = on["card"][key]
+        assert got.device.type == "cuda", key
+        if got.dtype in (torch.uint8, torch.bool):
+            assert torch.equal(got.cpu(), want), key
+        elif key == "ie":  # a difference keeps its terms' rounding
+            a, b = on["cpu"]["tab"][: v // 2], on["cpu"]["tab"][v // 2:
+                                                               2 * (v // 2)]
+            scale = sum(hll.estimate(x, cfg).abs()
+                        for x in (a, b, hll.merge(a, b)))
+            assert bool(((got.cpu() - want).abs() <= 1e-6 * scale).all())
+        else:
+            np.testing.assert_allclose(got.cpu().numpy(), want.numpy(),
+                                       rtol=1e-6, atol=0, err_msg=key)
+    # the card's registers through the kernels, counted
+    before = _build.launch_counts()
+    hll.insert_table(on["card"]["tab"], rows, keys, cfg)
+    hll.estimate(on["card"]["tab"], cfg)
+    after = _build.launch_counts()
+    assert after["hll_accumulate"] == before["hll_accumulate"] + 1
+    assert after["hll_estimate_stats"] == before["hll_estimate_stats"] + 1
+
+
+def test_functional_stats_on_the_card_are_exact(dev):
+    """The card's (s, z) equal the CPU plain version's bit for bit (both
+    the exact sum rounded once), at registers up to 44 = 52 - p."""
+    from repro_torch.kernels import hll_estimate
+    rng = np.random.default_rng(77)
+    regs = torch.from_numpy(rng.integers(0, 45, (999, 256))
+                            .astype(np.uint8))
+    got = hll_estimate.hll_estimate_stats(regs.to(dev)).cpu()
+    assert torch.equal(got, hll_estimate.plain(regs))
+
+
+@pytest.mark.parametrize("block", [1 << 15, 1000])
+def test_degreesketch_on_the_card_matches_the_cpu(dev, block):
+    from repro_torch import engine
+    from repro_torch.core import degreesketch as dsk
+    from repro_torch.core.hll import HLLConfig
+    edges, n = _graph(10, 21)
+    cfg = HLLConfig(p=8)
+    before = _build.launch_counts()["hll_accumulate"]
+    card = dsk.accumulate(edges, n, cfg, block=block)  # default: the card
+    assert _build.launch_counts()["hll_accumulate"] - before == \
+        -(-2 * len(edges) // block)
+    cpu = dsk.accumulate(edges, n, cfg, device="cpu")
+    assert card.regs.device.type == "cuda"
+    assert torch.equal(card.regs.cpu(), cpu.regs)
+    before = _build.launch_counts()
+    local, glob, d3 = dsk.neighborhood_estimates(edges, n, cfg, 3,
+                                                 sketch=card)
+    after = _build.launch_counts()
+    assert after["hll_propagate"] - before["hll_propagate"] == 2
+    assert after["hll_estimate_stats"] - before["hll_estimate_stats"] == 3
+    w_local, w_glob, w3 = dsk.neighborhood_estimates(edges, n, cfg, 3,
+                                                     device="cpu")
+    assert torch.equal(d3.regs.cpu(), w3.regs)
+    np.testing.assert_allclose(local, w_local, rtol=1e-6, atol=0)
+    np.testing.assert_allclose(glob, w_glob, rtol=1e-6, atol=0)
+    eng = engine.build(edges, n, cfg)
+    e_local, e_glob = eng.neighborhood(3)
+    assert np.array_equal(local, e_local) and np.array_equal(glob, e_glob)
+
+
+def test_colored_on_the_card_matches_the_cpu(dev):
+    from repro_torch.core import colored, degreesketch as dsk
+    from repro_torch.core.hll import HLLConfig
+    edges, n = _graph(10, 23)
+    colors = np.random.default_rng(5).integers(0, 3, n)
+    cfg = HLLConfig(p=8)
+    before = _build.launch_counts()
+    card = colored.colored_neighborhood(
+        colored.colored_accumulate(edges, colors, n, cfg), edges, 2)
+    after = _build.launch_counts()
+    assert after["hll_accumulate"] - before["hll_accumulate"] == 1
+    assert after["hll_propagate"] - before["hll_propagate"] == 3
+    cpu = colored.colored_neighborhood(
+        colored.colored_accumulate(edges, colors, n, cfg, device="cpu"),
+        edges, 2)
+    assert torch.equal(card.regs.cpu(), cpu.regs)
+    _, _, d2 = dsk.neighborhood_estimates(edges, n, cfg, 2)
+    assert torch.equal(card.regs.amax(dim=0), d2.regs)
+    for x in (0, 5, 77):
+        for c in range(3):
+            np.testing.assert_allclose(card.count(x, c), cpu.count(x, c),
+                                       rtol=1e-6)
+            np.testing.assert_allclose(card.count_not(x, c),
+                                       cpu.count_not(x, c), rtol=1e-6)
+        a, b = card.count_and(x, 0, 1), cpu.count_and(x, 0, 1)
+        assert abs(a - b) <= 1e-4 * abs(b)
+
+
+@pytest.mark.parametrize("impl", ["cuda", "ref"])
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+def test_neighborhood_estimates_keep_the_sketchs_layout_and_impl(dev, layout,
+                                                                 impl):
+    """A sketch of either layout and impl is advanced as it is: equal to
+    the engine of that layout and impl on the card bit for bit, kernels
+    launched for "cuda" and none for "ref"."""
+    from repro_torch import engine
+    from repro_torch.core import degreesketch as dsk
+    from repro_torch.core.hll import HLLConfig
+    edges, n = _graph(12, 8)
+    cfg = HLLConfig(p=8)
+    eng = engine.build(edges, n, cfg, layout=layout, impl=impl)
+    want = eng.neighborhood(3)
+    ds = dsk.DegreeSketch(regs=eng.regs, n=n, cfg=cfg, layout=layout,
+                          impl=impl)
+    _build.reset_launch_counts()
+    local, glob, out = dsk.neighborhood_estimates(edges, n, cfg, 3,
+                                                  sketch=ds)
+    launched = sum(_build.launch_counts().values())
+    assert (out.layout, out.impl) == (layout, impl)
+    assert launched == (0 if impl == "ref" else 5)
+    assert np.array_equal(local, want[0]) and np.array_equal(glob, want[1])
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+def test_ref_impl_on_the_card_launches_nothing_and_equals_cuda(dev, layout):
+    from repro_torch import engine
+    from repro_torch.core.ads import ADSConfig
+    from repro_torch.core.hll import HLLConfig
+    edges, n = _graph(10, 3)
+    rng = np.random.default_rng(3)
+    pairs = edges[rng.choice(len(edges), 128, replace=False)]
+    sets = [rng.integers(0, n, rng.integers(1, 70)) for _ in range(50)]
+
+    def answers(eng):
+        out = [eng.regs.cpu().numpy(), eng.degrees(), *eng.neighborhood(3),
+               eng.union_size(sets), eng.intersection_size(pairs, iters=10),
+               eng.intersection_size(pairs, method="ie")]
+        for mode in ("edge", "vertex"):
+            tot, vals, ids = eng.triangle_heavy_hitters(10, mode=mode,
+                                                        iters=10)
+            out += [np.float64(tot), vals, ids]
+        return out
+
+    cuda = answers(engine.build(edges, n, HLLConfig(p=8), layout=layout))
+    _build.reset_launch_counts()
+    ref_eng = engine.build(edges, n, HLLConfig(p=8), layout=layout,
+                           impl="ref")
+    assert ref_eng.device.type == "cuda" and ref_eng.impl == "ref"
+    ref = answers(ref_eng)
+    if layout == "byte":
+        ads = engine.build(edges, n, ADSConfig(p=8), impl="ref")
+        ref_hist = ads.distance_histogram(3)
+    assert set(_build.launch_counts().values()) == {0}
+    for a, b in zip(ref, cuda):
+        assert np.array_equal(a, b)
+    if layout == "byte":
+        want = engine.build(edges, n, ADSConfig(p=8)).distance_histogram(3)
+        for a, b in zip(ref_hist, want):
+            assert np.array_equal(a, b)

@@ -26,7 +26,7 @@ from repro_torch import engine  # noqa: E402
 from repro_torch.core.ads import ADSConfig  # noqa: E402
 from repro_torch.core.hll import HLLConfig  # noqa: E402
 from repro_torch.engine.base import SketchEngine  # noqa: E402
-from repro_torch.engine.local import directed_block, directed_routing  # noqa: E402
+from repro_torch.kernels.inputs import directed_block, directed_routing  # noqa: E402
 from repro_torch.graph import generators  # noqa: E402
 from repro_torch.kernels import hll_accumulate, hll_propagate, ops  # noqa: E402
 
@@ -93,8 +93,8 @@ def test_directed_routing_in_slices_equals_one_sort(monkeypatch,
     """Built slice by slice (a hub's in-edges larger than a slice, slices
     of one edge, one slice for all) the routing equals sort_routing of
     both orientations in one call, self-edges and duplicates included."""
-    from repro_torch.engine import local
-    monkeypatch.setattr(local, "ROUTING_SLICE", slice_edges)
+    from repro_torch.kernels import inputs
+    monkeypatch.setattr(inputs, "ROUTING_SLICE", slice_edges)
     edges = generators.rmat(7, 4, seed=5)
     edges = np.concatenate([edges, [[3, 3], [0, 9], [0, 9]]]).astype(np.int32)
     strided = np.repeat(edges, 2, axis=0)[::2]  # a view, as edges[i::2]

@@ -580,6 +580,19 @@ def test_sketch_serve_smoke_on_cpu(extra, capsys):
         assert "served answers bit-identical pre/post" in out
 
 
+def test_sketch_serve_impl_flag(capsys):
+    """``--impl ref`` serves from the plain versions; an unknown impl is
+    refused by the argument parser before any work."""
+    sketch_serve.main(["--smoke", "--device", "cpu", "--impl", "ref"])
+    out = capsys.readouterr().out
+    assert "impl=ref" in out
+    assert "OK: plan count within the O(log batch) bound" in out
+    with pytest.raises(SystemExit) as exc:
+        sketch_serve.main(["--smoke", "--device", "cpu", "--impl", "pallas"])
+    assert exc.value.code == 2
+    assert "invalid choice: 'pallas'" in capsys.readouterr().err
+
+
 def test_sketch_serve_refuses_a_sharded_request(capsys):
     """The port has only the local backend: the JAX launcher's sharding
     flags are not accepted, so a sharded request fails before any work."""
