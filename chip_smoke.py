@@ -8,8 +8,8 @@ Run from the repository root, on a machine with one CUDA card:
 Phases, one line each:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build: the CUDA kernels of ``src/repro_torch/csrc`` from source, seven
-   byte-layout launchers and six packed-layout ones;
+2. build: the CUDA kernels of ``src/repro_torch/csrc`` from source, eight
+   byte-layout launchers and seven packed-layout ones;
 3. graph: RMAT scale 22, edge factor 16, seed 0 (4.19M vertices, about
    64M undirected edges, the Graph500 Kronecker parameters), and the
    4,096 union sets ``{v} ∪ N(v)`` of seeded random vertices of degree
@@ -42,7 +42,15 @@ Phases, one line each:
    (512 MiB) at the same shapes, equal to its plain version bit for bit
    and to the byte kernel on the unpacked (clamped) panel, the packed
    accumulate equal to ``pack_rows`` of the byte panel and the packed
-   propagate to ``pack_rows`` of the byte pass;
+   propagate to ``pack_rows`` of the byte pass; and the two-panel
+   launchers ``hll_propagate_into`` and ``_packed`` (the sharded
+   schedules' merge, the port's kernel for the JAX package's plain
+   ``packing.scatter_max_rows``) at the three shapes of the sharded
+   phase, shard 0 of 4: a ring step (merging block 1, plus 4,096
+   self-index pairs that a skip of ``src == dst`` would drop), the
+   all-gather merge (every edge into shard 0 over all n_pad rows) and
+   the replica pre-pass (a 1,024-row panel), each equal bit for bit and
+   timed;
 5. main path, with launch counters zeroed just before: ``engine.build``
    (``hll_accumulate`` launched once per ``INGEST_BLOCK`` chunk, 16
    times at scale 22), ``degrees`` (mean relative error against exact
@@ -88,6 +96,30 @@ Phases, one line each:
    rotations, shed and deadline counts, per-kind p50/p99, the lease
    clone's time (CUDA events) against its bound and the phase's peak
    memory printed;
+5h. sharded, after phase 5c (counts taken over the sharded engine's calls
+   only; the local engine's reference answers run between them): for
+   each layout, the local engine's panels and answers, then
+   ``engine.build(..., backend="sharded", shards=4)`` on the one card
+   (one accumulate launch per owner shard a chunk), ``degrees``, the
+   routing plan (built on the card, timed), ``neighborhood(3)`` under
+   ``ring``, ``ring_overlap`` and ``allgather`` (every D^t shard panel
+   equal to the local panel's rows, the two-panel launches one per
+   non-empty group a pass, the bytes each schedule copies between
+   shards and one pass in CUDA events printed), ``intersection_size``,
+   ``union_size`` and ``query_batch``, all equal to the local engine's
+   bit for bit; then (byte) 1,024 replicas, ``neighborhood(2)`` through
+   the replica pre-pass, save at 4 shards under ``build/``, load at 1
+   and 2 shards and on the local backend with registers, degrees,
+   ``neighborhood(2)`` and unions unchanged and the replica set
+   reinstalled; ``ADSConfig(p=8)`` at 4 shards (``distance_histogram
+   (6)``, ``closeness``, ``effective_diameter`` equal to the local ADS
+   engine's, ``hip_delta_rows`` 5 x 4 launches); and the Kronecker
+   graph's ``triangle_heavy_hitters(100)`` in edge and vertex mode
+   (per-edge estimates equal to the local engine's, totals within 1e-3,
+   top-100 sets equal where the values are distinct). The one-panel
+   propagate must not launch; every other launcher of the sharded path
+   must. Peak memory printed per sub-phase (the peak statistic reset at
+   each start), and the phase's maximum over them;
 5b. packed main path, once the byte engine is freed, counters zeroed just
    before: the same steps with ``layout="packed"``, each timed, with peak
    memory and the same launch counts (then a short packed ``QueryServer``
@@ -216,7 +248,16 @@ SOURCES = {
                                     "src/repro/kernels/union_estimate.py:40"),
     "ertl_stats_packed": ("src/repro_torch/csrc/ertl_stats.cu",
                           "src/repro/kernels/ertl_stats.py:34"),
+    # the two-panel merge of the sharded schedules: no Pallas site, the
+    # port's kernel for the plain jnp packing.scatter_max_rows
+    "hll_propagate_into": ("src/repro_torch/csrc/hll_propagate.cu",
+                           "src/repro/kernels/packing.py:124"),
+    "hll_propagate_into_packed": ("src/repro_torch/csrc/hll_propagate.cu",
+                                  "src/repro/kernels/packing.py:124"),
 }
+#: the sharded phase: shard panels on the one card, and the ring step that
+#: phase 4 holds the two-panel launchers at (shard 0 merging block 1)
+SHARDS = 4
 
 
 def log(msg: str) -> None:
@@ -411,6 +452,7 @@ def compare_kernels(torch, np, edges, n, pairs, sets, skew, report):
     report("hll_propagate", err, ms, plain_ms,
            bound_ms(2 * n_pad * r + 8 * e_live), None,
            f"{e_live} directed edges, dst-sorted routing")
+    compare_propagate_into(torch, np, regs_k, src, dst, "byte", report)
     del src, dst
     compare_hip_delta(torch, np, regs_k, prop_k, report)
     del prop_k
@@ -644,6 +686,102 @@ def routing_timing(torch, np, edges):
     return routing
 
 
+def _check_into(torch, name, out0, src_panel, src, dst, layout, reps):
+    """The two-panel launcher on ``(out0, src_panel)`` over one dst-sorted
+    group: fail unless it equals its plain version bit for bit. Returns
+    (kernel ms, plain ms, bytes bound ms, the plain result): the wrapper's
+    call on a fresh copy of ``out0`` (CUDA events); the bound reads each
+    distinct source and destination row once, writes each destination
+    row once, 8 bytes an edge."""
+    from repro_torch.kernels import hll_propagate
+
+    got = hll_propagate.hll_propagate_into(out0.clone(), src_panel, src, dst,
+                                           layout=layout)
+    want = hll_propagate.plain_into(out0.clone(), src_panel, src, dst,
+                                    layout=layout)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail(f"{name} differs from its plain version")
+    ms = cuda_ms(torch, lambda o: hll_propagate.hll_propagate_into(
+        o, src_panel, src, dst, layout=layout, check_order=False), reps,
+        setup=lambda: (out0.clone(),))
+    plain_ms = cuda_ms(torch, lambda o: hll_propagate.plain_into(
+        o, src_panel, src, dst, layout=layout), 1,
+        setup=lambda: (out0.clone(),))
+    w = out0.shape[1]
+    rows_src = torch.unique(src).numel()
+    rows_dst = torch.unique(dst).numel()
+    bnd = bound_ms(rows_src * w + 2 * rows_dst * w + 8 * src.numel())
+    return ms, plain_ms, bnd, want
+
+
+def compare_propagate_into(torch, np, regs, src, dst, layout, report):
+    """The two-panel launcher against its plain version, bit for bit, at
+    the three shapes the sharded phase gives it, shard 0 of SHARDS on the
+    scale-22 panel (``out`` is rows [0, v_loc), its own allocation):
+
+    * a ring step: the edges whose source lies in block 1 (another
+      allocation of v_loc rows), plus 4,096 self-index pairs ``(x, x)``,
+      which name two different vertices there; the result must also
+      differ from the plain version without those pairs (a skip would
+      show). This shape is the kernels line's row.
+    * the all-gather merge: every edge into shard 0 over the gathered
+      panel (a copy of all n_pad rows, V_src = SHARDS * V_out);
+    * the replica pre-pass: the edges into shard 0 whose source is one of
+      the 1,024 highest in-degree vertices, over a panel of those rows.
+    """
+    from repro_torch.kernels import hll_propagate
+
+    v_loc = regs.shape[0] // SHARDS
+    name = "hll_propagate_into" + ("_packed" if layout == "packed" else "")
+    out0 = regs[:v_loc].clone()
+
+    keep = (dst < v_loc) & (src >= v_loc) & (src < 2 * v_loc)
+    s_blk, d_blk = src[keep] - v_loc, dst[keep]
+    k = min(4096, v_loc)
+    x = torch.from_numpy(np.random.default_rng(SEED + 7).choice(
+        v_loc, k, replace=False).astype(np.int32)).to(regs.device)
+    s_all, d_all = hll_propagate.sort_routing(torch.cat([s_blk, x]),
+                                              torch.cat([d_blk, x]))
+    block = regs[v_loc:2 * v_loc].clone()
+    ms, plain_ms, bnd, want = _check_into(torch, name, out0, block, s_all,
+                                          d_all, layout, 10)
+    without = hll_propagate.plain_into(out0.clone(), block, s_blk, d_blk,
+                                       layout=layout)
+    if torch.equal(want, without):
+        fail(f"{name}: the self-index pairs changed nothing; the check "
+             f"cannot see a skip")
+    report(name, 0, ms, plain_ms, bnd, None,
+           f"ring step of {SHARDS} shards: {s_all.numel()} edges "
+           f"({int(keep.sum())} of block 1 into shard 0, {k} self-index "
+           f"pairs), {v_loc} + {v_loc} rows; equal, and a skip of src == dst "
+           f"would differ")
+    del block, want, without, s_all, d_all, s_blk, d_blk, keep
+
+    into0 = dst < v_loc  # the whole routing is dst-sorted: so is the group
+    s_ag, d_ag = src[into0], dst[into0]
+    full = regs.clone()
+    ms, plain_ms, bnd, _ = _check_into(torch, name, out0, full, s_ag, d_ag,
+                                       layout, 5)
+    log(f"kernel vs plain: {name}: all-gather merge of shard 0: "
+        f"{s_ag.numel()} edges, {full.shape[0]} source rows into {v_loc}: "
+        f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bnd:.4f} ms (bytes)")
+    del full
+
+    deg = torch.bincount(src.to(torch.int64), minlength=regs.shape[0])
+    hot = torch.topk(deg, 1024).indices.sort().values
+    hit = torch.isin(s_ag.to(torch.int64), hot)
+    slot = torch.searchsorted(hot, s_ag[hit].to(torch.int64)).to(torch.int32)
+    rep = regs[hot].clone()
+    ms, plain_ms, bnd, _ = _check_into(torch, name, out0, rep, slot,
+                                       d_ag[hit], layout, 10)
+    log(f"kernel vs plain: {name}: replica pre-pass of shard 0: "
+        f"{slot.numel()} edges, {rep.shape[0]} replica rows into {v_loc}: "
+        f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bnd:.4f} ms (bytes)")
+
+
 def compare_hip_delta(torch, np, prev, cur, report):
     """hip_delta_rows against its plain version: D^1 -> D^2 of the main
     panel, then ragged row counts with registers up to max_register and
@@ -761,6 +899,7 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, skew, panel,
            bound_ms(2 * n_pad * w + 8 * e_live), None,
            f"{e_live} directed edges, dst-sorted routing; pack_rows(byte "
            f"pass) equal")
+    compare_propagate_into(torch, np, regs_k, src, dst, "packed", report)
     del src, dst
 
     # intersection_stats: the main path's pairs
@@ -1439,8 +1578,10 @@ def small_packed(torch, np, edges, n, sample, sets):
     batch = gpu.query_batch(degrees=True, vertex_sets=sets, pairs=sample,
                             iters=10)
     counts = _build.launch_counts()
-    missing = [k for k, c in counts.items()
-               if k.endswith("_packed") and c == 0]
+    # the local engine's packed kernels (the two-panel merge is the
+    # sharded backend's, launched in phase 5h)
+    missing = [k for k, c in counts.items() if k.endswith("_packed")
+               and k != "hll_propagate_into_packed" and c == 0]
     if missing:
         fail(f"small reference: packed kernels never launched: {missing}")
     if not (np.array_equal(batch["degrees"], got["degrees"])
@@ -1791,6 +1932,345 @@ def kron_phase(torch, np):
         f"{recall:.2f} against exact counts >= {kth} "
         f"({int((truth >= kth).sum())} edges; reported, not gated); launches "
         f"{counts}")
+    return counts
+
+
+# ------------------------------------------------------------------ sharded
+def mem_start(torch) -> int:
+    """Reset the card's peak memory statistic; returns the bytes held."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def mem_peak(torch, base, peaks) -> str:
+    """The peak since :func:`mem_start` returned ``base``, as text; the
+    peak in bytes is appended to ``peaks``."""
+    peak = torch.cuda.max_memory_allocated()
+    peaks.append(peak)
+    return (f"max_memory_allocated {peak / 2**30:.2f} GiB "
+            f"({(peak - base) / 2**30:+.2f} GiB over the "
+            f"{base / 2**30:.2f} GiB held at the sub-phase's start)")
+
+
+def _schedule_pass(sd, plan, parts, layout, schedule):
+    """One Algorithm 2 pass of ``schedule`` over the shard panels."""
+    if schedule == "allgather":
+        return sd.dist_propagate_allgather(plan, parts, layout=layout)
+    return sd.dist_propagate_ring(plan, parts, layout=layout,
+                                  overlap=schedule == "ring_overlap")
+
+
+def _merges_per_pass(plan, schedule):
+    """Two-panel launches one pass of ``schedule`` makes: one per
+    non-empty group (ring: shard x source block; all-gather: shard;
+    replica groups first)."""
+    S = plan.num_shards
+    if schedule == "allgather":
+        n = sum(int(t.numel() > 0) for t in plan.flat_dst)
+    else:
+        n = sum(int(plan.ring_off[s][b + 1] > plan.ring_off[s][b])
+                for s in range(S) for b in range(S))
+    if plan.has_replicas:
+        n += sum(int(t.numel() > 0) for t in plan.rep_dst)
+    return n
+
+
+def _same_shards(torch, parts, full, what):
+    """Fail unless the shard panels are the row blocks of ``full``."""
+    v = parts[0].shape[0]
+    for s, part in enumerate(parts):
+        if not torch.equal(part, full[s * v:(s + 1) * v]):
+            fail(f"sharded: {what}: shard {s} differs from the local panel")
+
+
+def sharded_layout(torch, np, edges, n, pairs, sets, layout, counted):
+    """Phase 5h, one layout: the local engine's panels and answers first
+    (outside the counted windows), then the sharded engine at SHARDS
+    shards through its entry points, every panel and answer equal to the
+    local engine's bit for bit. Returns the sharded engine and the local
+    answers."""
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.distributed import sketch_dist as sd
+    from repro_torch.kernels import _build
+
+    local = engine.build(edges, n, HLLConfig(p=P), layout=layout,
+                         device=DEVICE)
+    want = {"deg": local.degrees(), "nb": local.neighborhood(T_MAX),
+            "inter": local.intersection_size(pairs),
+            "uni": local.union_size(sets),
+            "batch": local.query_batch(degrees=True, vertex_sets=sets,
+                                       pairs=pairs)}
+    hops = local._panels_up_to(T_MAX)  # D^1 (the built panel) .. D^T_MAX
+    del local
+    torch.cuda.empty_cache()
+    base = mem_start(torch)  # the local panels D^1..D^T_MAX stay held
+
+    def step(name, fn):
+        out, secs = timed(torch, lambda: counted(fn))
+        log(f"sharded: {layout}: {name}: {secs:.3f} s, "
+            f"{mem_peak(torch, base, counted.peaks)}")
+        return out
+
+    before = dict(counted.counts)
+    eng = step("build", lambda: engine.build(
+        edges, n, HLLConfig(p=P), layout=layout, device=DEVICE,
+        backend="sharded", shards=SHARDS))
+    v_loc = eng.v_loc
+    owners = sum(int((np.bincount(edges[c:c + eng.INGEST_BLOCK].ravel()
+                                  // v_loc, minlength=SHARDS) > 0).sum())
+                 for c in range(0, len(edges), eng.INGEST_BLOCK))
+    launch_check("sharded", _build.kernel_name("hll_accumulate", layout),
+                 counted.counts, before, owners, f"{layout} build")
+    _same_shards(torch, eng.shard_regs, hops[0], f"{layout} build")
+    if not np.array_equal(step("degrees", eng.degrees), want["deg"]):
+        fail(f"sharded: {layout} degrees differ from the local engine's")
+    plan, secs = timed(torch, lambda: eng.plan)
+    log(f"sharded: {layout}: routing plan on the card {secs:.3f} s "
+        f"(directed edges per shard {[int(t.numel()) for t in plan.acc_dst]}"
+        f"), {mem_peak(torch, base, counted.peaks)}")
+    into = _build.kernel_name("hll_propagate_into", layout)
+    for schedule in ("ring", "ring_overlap", "allgather"):
+        sd.reset_copied_bytes()
+        before = dict(counted.counts)
+        loc, glob = step(f"neighborhood({T_MAX}, {schedule})",
+                         lambda: eng.neighborhood(T_MAX, schedule=schedule))
+        moved = sd.copied_bytes()
+        launch_check("sharded", into, counted.counts, before,
+                     (T_MAX - 1) * _merges_per_pass(plan, schedule),
+                     f"{layout} neighborhood({T_MAX}, {schedule})")
+        for t, panel in enumerate(eng._panels_up_to(T_MAX, schedule)):
+            _same_shards(torch, panel, hops[t], f"{layout} {schedule} D^{t + 1}")
+        if not (np.array_equal(loc, want["nb"][0])
+                and np.array_equal(glob, want["nb"][1])):
+            fail(f"sharded: {layout} neighborhood({T_MAX}, {schedule}) "
+                 f"differs from the local engine's")
+        ms = cuda_ms(torch, lambda: _schedule_pass(
+            sd, plan, eng.shard_regs, layout, schedule), 3)
+        log(f"sharded: {layout}: {schedule}: one pass {ms:.3f} ms (CUDA "
+            f"events, {SHARDS} shards on one card); copied between shards "
+            f"per pass: " + ", ".join(
+                f"{k} {v / (T_MAX - 1) / 2**30:.3f} GiB"
+                for k, v in moved.items() if v) +
+            f"; D^1..D^{T_MAX} panels and answers equal the local engine's")
+    got = {"inter": step("intersection_size",
+                         lambda: eng.intersection_size(pairs)),
+           "uni": step("union_size", lambda: eng.union_size(sets)),
+           "batch": step("query_batch", lambda: eng.query_batch(
+               degrees=True, vertex_sets=sets, pairs=pairs))}
+    for key in ("inter", "uni"):
+        if not np.array_equal(got[key], want[key]):
+            fail(f"sharded: {layout} {key} differs from the local engine's")
+    if got["batch"].keys() != want["batch"].keys() or not all(
+            np.array_equal(got["batch"][k], want["batch"][k])
+            for k in want["batch"]):
+        fail(f"sharded: {layout} query_batch differs from the local engine's")
+    log(f"sharded: {layout}: build, degrees, neighborhood({T_MAX}) under "
+        f"ring, ring_overlap and allgather, {len(pairs)} pairs, {len(sets)} "
+        f"sets and query_batch equal the local engine's bit for bit")
+    return eng, want, hops[0]
+
+
+def sharded_reshard(torch, np, eng, edges, n, want, panel, counted):
+    """Phase 5h, reshard: install a replica set of the 1,024 highest
+    degrees (``neighborhood(2)`` again through the replica pre-pass), save
+    at SHARDS shards, load at 1 and 2 shards and on the local backend:
+    registers, degrees, ``neighborhood(2)`` and unions unchanged, the
+    replica set reinstalled. The directory is removed."""
+    from repro_torch import engine
+
+    base = mem_start(torch)
+    hot = np.argsort(-np.bincount(edges.ravel(), minlength=n))[:1024]
+    counted(lambda: eng.replicate(hot))
+    loc, _ = counted(lambda: eng.neighborhood(2, schedule="ring"))
+    if not np.array_equal(loc, want["nb"][0][:2]):
+        fail("sharded: neighborhood(2) with replicas differs")
+    path = ROOT / "build" / "chip_smoke_sharded_ckpt"
+    shutil.rmtree(path, ignore_errors=True)
+    try:
+        _, secs = timed(torch, lambda: eng.save(str(path)))
+        log(f"sharded: reshard: save at {SHARDS} shards with {len(hot)} "
+            f"replicas {secs:.2f} s")
+        for backend, shards in (("sharded", 1), ("sharded", 2),
+                                ("local", None)):
+            def load():
+                return engine.load(str(path), backend=backend, shards=shards,
+                                   device=DEVICE)
+            back, secs = timed(torch, lambda: counted(load)
+                               if backend == "sharded" else load())
+            if not np.array_equal(back.replicated_ids, np.sort(hot)):
+                fail(f"sharded: reshard to {backend} {shards}: replica set "
+                     f"not reinstalled")
+            if backend == "sharded":
+                _same_shards(torch, back.shard_regs, panel,
+                             f"reshard to {shards}")
+                loc, _ = counted(lambda: back.neighborhood(2))
+                deg = counted(back.degrees)
+                uni = counted(lambda: back.union_size(want["sets"]))
+            else:  # the local engine launches the one-panel kernel
+                if not torch.equal(back.regs[:n], panel[:n]):
+                    fail("sharded: reshard to local: registers differ")
+                loc, _ = back.neighborhood(2)
+                deg, uni = back.degrees(), back.union_size(want["sets"])
+            if not (np.array_equal(loc, want["nb"][0][:2])
+                    and np.array_equal(deg, want["deg"])
+                    and np.array_equal(uni, want["uni"])):
+                fail(f"sharded: reshard to {backend} {shards}: answers "
+                     f"changed")
+            log(f"sharded: reshard: load as {backend} shards={shards} "
+                f"{secs:.2f} s; registers, degrees, neighborhood(2) through "
+                f"the reinstalled replicas and unions unchanged; "
+                f"{mem_peak(torch, base, counted.peaks)}")
+            del back
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+
+
+def sharded_ads(torch, np, edges, n, counted):
+    """Phase 5h, ADS: ``ADSConfig(p=8)`` at SHARDS shards,
+    ``distance_histogram``, ``closeness`` and ``effective_diameter`` at
+    ADS_T hops equal to the local ADS engine's."""
+    from repro_torch import engine
+    from repro_torch.core.ads import ADSConfig
+    from repro_torch.kernels import _build
+
+    local = engine.build(edges, n, ADSConfig(p=P), family="ads",
+                         device=DEVICE)
+    want = (local.distance_histogram(ADS_T), local.closeness(ADS_T),
+            local.effective_diameter(ADS_T, 0.9))
+    del local
+    torch.cuda.empty_cache()
+    base = mem_start(torch)
+    before = dict(counted.counts)
+    t0 = time.perf_counter()
+    eng = counted(lambda: engine.build(edges, n, ADSConfig(p=P),
+                                       family="ads", device=DEVICE,
+                                       backend="sharded", shards=SHARDS))
+    got = (counted(lambda: eng.distance_histogram(ADS_T)),
+           counted(lambda: eng.closeness(ADS_T)),
+           counted(lambda: eng.effective_diameter(ADS_T, 0.9)))
+    secs = time.perf_counter() - t0
+    launch_check("sharded", "hip_delta_rows", counted.counts, before,
+                 (ADS_T - 1) * SHARDS, f"ADS distance_histogram({ADS_T})")
+    same = (all(np.array_equal(a, b) for a, b in zip(got[0], want[0]))
+            and np.array_equal(got[1], want[1]) and got[2] == want[2])
+    if not same:
+        fail("sharded: ADS distance queries differ from the local engine's")
+    log(f"sharded: ADS: build, distance_histogram({ADS_T}), closeness, "
+        f"effective_diameter {got[2]:.4f} in {secs:.3f} s, equal to the "
+        f"local ADS engine's; {mem_peak(torch, base, counted.peaks)}")
+
+
+def sharded_triangles(torch, np, counted):
+    """Phase 5h, triangles on the Kronecker phase's graph: per-edge
+    estimates of the sharded engine equal to the local engine's, the
+    edge and vertex totals within 1e-3 relative (float64 sums in another
+    order), the top-``TRI_K`` equal as sets wherever the values are
+    distinct."""
+    from repro_torch import engine
+    from repro_torch.core import degreesketch as dsk
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.graph import generators
+
+    f = generators.rmat(KRON_FACTOR_SCALE, 8, seed=0)
+    nf = 1 << KRON_FACTOR_SCALE
+    edges = generators.kronecker_edges(f, nf, f, nf)
+    n = nf * nf
+    local = engine.build(edges, n, HLLConfig(p=P), device=DEVICE)
+    est, secs_l = timed(torch, lambda: dsk.edge_triangle_estimates(
+        dsk.DegreeSketch(regs=local.regs, n=n, cfg=local.cfg), edges))
+    del local
+    want_v = dsk._vertex_counts(n, edges, est)
+    torch.cuda.empty_cache()
+    base = mem_start(torch)
+    eng = counted(lambda: engine.build(edges, n, HLLConfig(p=P),
+                                       device=DEVICE, backend="sharded",
+                                       shards=SHARDS))
+    t0 = time.perf_counter()
+    e_tot, e_vals, e_top = counted(lambda: eng.triangle_heavy_hitters(
+        TRI_K, mode="edge"))
+    secs = time.perf_counter() - t0
+    v_tot, v_vals, v_top = counted(lambda: eng.triangle_heavy_hitters(
+        TRI_K, mode="vertex"))
+    got = counted(eng.edge_triangle_estimates)
+    if not np.array_equal(got, est):
+        fail("sharded: per-edge triangle estimates differ from the local "
+             "engine's")
+    total = float(est.sum()) / 3.0
+    for mode, tot in (("edge", e_tot), ("vertex", v_tot)):
+        if abs(tot - total) > 1e-3 * abs(total):
+            fail(f"sharded: {mode} total {tot} vs local {total}")
+    order = np.argsort(-est)
+    key = edges[:, 0].astype(np.int64) * n + edges[:, 1]
+    top_key = e_top[:, 0].astype(np.int64) * n + e_top[:, 1]
+    v_order = np.argsort(-want_v)
+    for what, vals, ids, ref_vals, ref_ids in (
+            ("edge", e_vals, top_key, est[order], key[order]),
+            ("vertex", v_vals, v_top, want_v[v_order], v_order)):
+        cut = TRI_K  # (near-)ties at the cut: compare the ids above them
+        while cut > 0 and abs(ref_vals[cut - 1] - ref_vals[cut]) <= \
+                1e-9 * abs(ref_vals[cut]):
+            cut -= 1
+        if not (np.allclose(vals, ref_vals[:TRI_K], rtol=1e-12, atol=0)
+                and set(ids[:cut].tolist()) == set(ref_ids[:cut].tolist())):
+            fail(f"sharded: {what} top-{TRI_K} differs from the local "
+                 f"engine's")
+    log(f"sharded: triangles: rmat({KRON_FACTOR_SCALE}, 8)^2, m={len(edges)}:"
+        f" triangle_heavy_hitters(k={TRI_K}, edge) {secs:.3f} s (local "
+        f"per-edge estimates {secs_l:.3f} s), vertex mode from the kept "
+        f"estimates; per-edge estimates equal, totals {e_tot:.1f} / "
+        f"{v_tot:.1f} against {total:.1f}, top-{TRI_K} sets equal; "
+        f"{mem_peak(torch, base, counted.peaks)}")
+
+
+def sharded_phase(torch, np, edges, n, pairs, sets):
+    """Phase 5h: the sharded backend at SHARDS shards on the one card, the
+    main path's graph, byte then packed; then reshard, ADS and triangles.
+    Launch counts are taken over the sharded engine's calls only (the
+    local engine's reference answers run between the counted windows).
+    Returns the counts."""
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+
+    def counted(fn):
+        before = _build.launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in _build.launch_counts().items():
+            counted.counts[k] += v - before[k]
+        return out
+    counted.counts = {k: 0 for k in _build.launch_counts()}
+    counted.peaks = []  # each sub-phase's peaks (bytes), for the maximum
+
+    for layout in ("byte", "packed"):
+        eng, want, panel = sharded_layout(torch, np, edges, n, pairs, sets,
+                                          layout, counted)
+        if layout == "byte":
+            want["sets"] = sets
+            sharded_reshard(torch, np, eng, edges, n, want, panel, counted)
+        del eng, want, panel
+        torch.cuda.empty_cache()
+    sharded_ads(torch, np, edges, n, counted)
+    torch.cuda.empty_cache()
+    sharded_triangles(torch, np, counted)
+    counts = counted.counts
+    need = ["hll_accumulate", "hll_accumulate_packed", "hll_estimate_stats",
+            "hll_estimate_stats_packed", "hll_propagate_into",
+            "hll_propagate_into_packed", "intersection_stats",
+            "intersection_stats_packed", "union_estimate_stats",
+            "union_estimate_stats_packed", "ertl_stats", "hip_delta_rows"]
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        fail(f"sharded: kernels never launched: {missing}")
+    if counts["hll_propagate"] or counts["hll_propagate_packed"]:
+        fail(f"sharded: a schedule ran the one-panel propagate: {counts}")
+    log(f"sharded: phase {time.perf_counter() - t_phase:.1f} s, "
+        f"max_memory_allocated over its sub-phases "
+        f"{max(counted.peaks) / 2**30:.2f} GiB; launches "
+        f"{({k: v for k, v in counts.items() if v})}")
     return counts
 
 
@@ -2353,6 +2833,9 @@ def main() -> int:
     t_serve += time.perf_counter() - t0
     phases.append(packed_durability(torch, np, edges, n, packed_eng))
     del panel, packed_panel, packed_eng
+    torch.cuda.empty_cache()
+    phases.append(sharded_phase(torch, np, edges, n, pairs, sets))
+    torch.cuda.empty_cache()
     ads_eng, ads_counts, hist = ads_path(torch, np, edges, n)
     phases += [ads_counts, merge_phase(torch, np, edges, n, ads_eng),
                checkpoint_phase(torch, np, n, ads_eng, hist)]

@@ -43,6 +43,19 @@
 // byte-wise max would be wrong on packed bytes). Both skips stay valid:
 // a zero word is the empty row in both layouts, and merged == old means
 // no nibble grew.
+//
+// Two panels (hll_propagate_into, hll_propagate_into_packed): the port's
+// kernel for repro/kernels/packing.py `scatter_max_rows`, the plain jnp
+// merge step of the sharded schedules (a ring step's in-flight block, an
+// all-gathered panel, a replica pre-pass), which has no Pallas kernel.
+// out[dst[e]] = max(out[dst[e]], src_panel[src[e]]) in place, over the
+// same dst-sorted runs and segments. Three things differ, and the
+// template's kInto switches them: the base of a segment's store is
+// out[d] itself (read with a plain load: only this group writes it), not
+// a frozen copy; src indexes src_panel (n_src rows) and dst indexes out
+// (n_out rows), two different vertex sets, so src == dst is a real edge
+// and nothing is skipped; and src_panel must be another allocation than
+// out (the wrapper checks), so the read-only path may cache it.
 #include "common.cuh"
 
 namespace {
@@ -106,9 +119,32 @@ __device__ __forceinline__ void merge_vec(Vec<kWords>* acc,
     acc->w[i] = repro::reg_max<kPacked>(acc->w[i], v.w[i]);
 }
 
+// Plain (coherent) read of kWords words of out: the two-panel kernel
+// reads the base of a segment it owns from the panel it writes.
+template <int kWords>
+__device__ __forceinline__ Vec<kWords> load_out(const uint32_t* p) {
+  Vec<kWords> v;
+  if constexpr (kWords == 4) {
+    const uint4 x = *reinterpret_cast<const uint4*>(p);
+    v.w[0] = x.x;
+    v.w[1] = x.y;
+    v.w[2] = x.z;
+    v.w[3] = x.w;
+  } else if constexpr (kWords == 2) {
+    const uint2 x = *reinterpret_cast<const uint2*>(p);
+    v.w[0] = x.x;
+    v.w[1] = x.y;
+  } else {
+    v.w[0] = *p;
+  }
+  return v;
+}
+
 // Folds the segment maximum `acc` of destination d into out[d] (this
 // lane's kWords words at `off`). `shared`: the segment crosses a run end.
-template <bool kPacked, int kWords>
+// The base is the frozen regs[d] (out starts as its copy), or with kInto
+// out[d] itself.
+template <bool kPacked, bool kInto, int kWords>
 __device__ __forceinline__ void flush(const uint32_t* __restrict__ regs,
                                       uint32_t* __restrict__ out, int64_t d,
                                       int64_t n_rows, int64_t row_words,
@@ -117,7 +153,9 @@ __device__ __forceinline__ void flush(const uint32_t* __restrict__ regs,
   if (d < 0 || d >= n_rows) return;
   uint32_t* o = out + d * row_words + off;
   if (!shared) {
-    const Vec<kWords> old = load_vec<kWords>(regs + d * row_words + off);
+    const Vec<kWords> old =
+        kInto ? load_out<kWords>(o)
+              : load_vec<kWords>(regs + d * row_words + off);
     Vec<kWords> merged = old;
     merge_vec<kPacked>(&merged, acc);
     bool grew = false;
@@ -142,15 +180,16 @@ __device__ __forceinline__ void flush(const uint32_t* __restrict__ regs,
 }
 
 // lanes: lanes per group (a power of two <= 32); chunks: row chunks of
-// lanes * kWords words. dst must be non-decreasing.
-template <bool kPacked, int kWords>
+// lanes * kWords words. dst must be non-decreasing. regs has n_src rows
+// and out n_rows (the same panel shape unless kInto).
+template <bool kPacked, bool kInto, int kWords>
 __global__ void __launch_bounds__(kThreads)
     hll_propagate_kernel(const uint32_t* __restrict__ regs,
                          uint32_t* __restrict__ out,
                          const int32_t* __restrict__ src,
                          const int32_t* __restrict__ dst, int64_t n_edges,
-                         int64_t n_rows, int64_t row_words, int lanes,
-                         int64_t chunks) {
+                         int64_t n_src, int64_t n_rows, int64_t row_words,
+                         int lanes, int64_t chunks) {
   const int lane = threadIdx.x & 31;
   const int groups_per_warp = 32 / lanes;
   const int64_t group =
@@ -183,7 +222,7 @@ __global__ void __launch_bounds__(kThreads)
           if (e + b < e1) {
             const int32_t s = src[e + b];
             ds[b] = dst[e + b];
-            if (s != ds[b] && s >= 0 && s < n_rows)
+            if ((kInto || s != ds[b]) && s >= 0 && s < n_src)
               rows[b] = load_vec<kWords>(
                   regs + static_cast<int64_t>(s) * row_words + off);
           }
@@ -192,40 +231,42 @@ __global__ void __launch_bounds__(kThreads)
         for (int b = 0; b < kBatch; ++b) {
           if (e + b >= e1) break;
           if (ds[b] != cur) {
-            flush<kPacked>(regs, out, cur, n_rows, row_words, off, acc,
-                           open_lo && cur == d_first);
+            flush<kPacked, kInto>(regs, out, cur, n_rows, row_words, off,
+                                  acc, open_lo && cur == d_first);
             cur = ds[b];
             acc = zero_vec<kWords>();
           }
           merge_vec<kPacked>(&acc, rows[b]);
         }
       }
-      flush<kPacked>(regs, out, cur, n_rows, row_words, off, acc,
-                     (open_lo && cur == d_first) ||
-                         (open_hi && cur == d_last));
+      flush<kPacked, kInto>(regs, out, cur, n_rows, row_words, off, acc,
+                            (open_lo && cur == d_first) ||
+                                (open_hi && cur == d_last));
     }
   }
 }
 
-template <bool kPacked, int kWords>
+template <bool kPacked, bool kInto, int kWords>
 void launch_words(const uint32_t* regs, uint32_t* out, const int32_t* src,
-                  const int32_t* dst, int64_t n_edges, int64_t n_rows,
-                  int64_t row_words, cudaStream_t stream) {
+                  const int32_t* dst, int64_t n_edges, int64_t n_src,
+                  int64_t n_rows, int64_t row_words, cudaStream_t stream) {
   const int64_t lanes64 = row_words / kWords < 32 ? row_words / kWords : 32;
   const int lanes = static_cast<int>(lanes64);
   const int64_t chunks = row_words / (lanes64 * kWords);
   const int64_t n_runs = (n_edges + kRunEdges - 1) / kRunEdges;
   // a run takes `lanes` threads
-  hll_propagate_kernel<kPacked, kWords>
+  hll_propagate_kernel<kPacked, kInto, kWords>
       <<<repro::grid_for(n_runs * lanes, kThreads), kThreads, 0, stream>>>(
-          regs, out, src, dst, n_edges, n_rows, row_words, lanes, chunks);
+          regs, out, src, dst, n_edges, n_src, n_rows, row_words, lanes,
+          chunks);
 }
 
-// width: bytes per row, a power of two >= 8.
-template <bool kPacked>
+// width: bytes per row, a power of two >= 8. regs has n_src rows, out
+// n_rows.
+template <bool kPacked, bool kInto>
 int launch(const uint8_t* regs, uint8_t* out, const int32_t* src,
-           const int32_t* dst, int64_t n_edges, int64_t n_rows, int width,
-           cudaStream_t stream) {
+           const int32_t* dst, int64_t n_edges, int64_t n_src,
+           int64_t n_rows, int width, cudaStream_t stream) {
   if (n_edges == 0) return 0;
   const auto* r = reinterpret_cast<const uint32_t*>(regs);
   auto* o = reinterpret_cast<uint32_t*>(out);
@@ -235,14 +276,14 @@ int launch(const uint8_t* regs, uint8_t* out, const int32_t* src,
   // 16-byte aligned)
   const int words = row_words >= 128 ? 4 : (row_words >= 64 ? 2 : 1);
   if (words == 4) {
-    launch_words<kPacked, 4>(r, o, src, dst, n_edges, n_rows, row_words,
-                             stream);
+    launch_words<kPacked, kInto, 4>(r, o, src, dst, n_edges, n_src, n_rows,
+                                    row_words, stream);
   } else if (words == 2) {
-    launch_words<kPacked, 2>(r, o, src, dst, n_edges, n_rows, row_words,
-                             stream);
+    launch_words<kPacked, kInto, 2>(r, o, src, dst, n_edges, n_src, n_rows,
+                                    row_words, stream);
   } else {
-    launch_words<kPacked, 1>(r, o, src, dst, n_edges, n_rows, row_words,
-                             stream);
+    launch_words<kPacked, kInto, 1>(r, o, src, dst, n_edges, n_src, n_rows,
+                                    row_words, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -253,7 +294,8 @@ extern "C" int hll_propagate(const uint8_t* regs, uint8_t* out,
                              const int32_t* src, const int32_t* dst,
                              int64_t n_edges, int64_t n_rows, int r,
                              cudaStream_t stream) {
-  return launch<false>(regs, out, src, dst, n_edges, n_rows, r, stream);
+  return launch<false, false>(regs, out, src, dst, n_edges, n_rows, n_rows, r,
+                              stream);
 }
 
 // r: registers per row; the packed row is r / 2 bytes (r >= 16).
@@ -261,5 +303,25 @@ extern "C" int hll_propagate_packed(const uint8_t* regs, uint8_t* out,
                                     const int32_t* src, const int32_t* dst,
                                     int64_t n_edges, int64_t n_rows, int r,
                                     cudaStream_t stream) {
-  return launch<true>(regs, out, src, dst, n_edges, n_rows, r >> 1, stream);
+  return launch<true, false>(regs, out, src, dst, n_edges, n_rows, n_rows,
+                             r >> 1, stream);
+}
+
+// out (n_out rows) max= src_panel (n_src rows) over a dst-sorted routing,
+// in place.
+extern "C" int hll_propagate_into(const uint8_t* src_panel, uint8_t* out,
+                                  const int32_t* src, const int32_t* dst,
+                                  int64_t n_edges, int64_t n_src,
+                                  int64_t n_out, int r, cudaStream_t stream) {
+  return launch<false, true>(src_panel, out, src, dst, n_edges, n_src, n_out,
+                             r, stream);
+}
+
+extern "C" int hll_propagate_into_packed(const uint8_t* src_panel,
+                                         uint8_t* out, const int32_t* src,
+                                         const int32_t* dst, int64_t n_edges,
+                                         int64_t n_src, int64_t n_out, int r,
+                                         cudaStream_t stream) {
+  return launch<true, true>(src_panel, out, src, dst, n_edges, n_src, n_out,
+                            r >> 1, stream);
 }

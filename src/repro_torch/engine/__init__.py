@@ -1,4 +1,4 @@
-"""Public sketch query API: open / build / load a ``LocalEngine`` on the card.
+"""Public sketch query API: open / build / load a ``SketchEngine`` on the card.
 
     from repro_torch import engine
     from repro_torch.core.ads import ADSConfig
@@ -31,17 +31,30 @@
 
     plain = engine.build(edges, n, HLLConfig(p=8), impl="ref")  # no kernels
 
+    big = engine.build(edges, n, HLLConfig(p=8), backend="sharded",
+                       shards=4)                  # four shard panels
+    loc, glob = big.neighborhood(3, schedule="allgather")
+    big.save(path)
+    two = engine.load(path, shards=2)              # elastic reshard
+
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``, which runs every kernel's plain PyTorch version); with
 ``device=None`` and no card they raise ``RuntimeError`` rather than
 carry on on the CPU. Both register layouts are ported: "byte" (one
 register a byte) and, for HLL, "packed" (two 4-bit registers a byte,
 half the device bytes; registers saturate at 15, ``kernels.packing``).
-Only the local backend is ported so far (the sharded backend is not;
-see ROADMAP.md); ``repro_torch.serve`` serves an engine to concurrent
-clients. ``engine.convert`` carries a JAX engine's state across as numpy
-arrays, and checkpoints cross between the packages as files, in either
-layout.
+Both backends are ported: ``backend="local"`` holds the panel as one
+tensor on one device; ``backend="sharded"`` (``engine.sharded``) as
+``shards`` blocks of rows, one tensor each, shard ``s`` on card ``s mod
+device_count`` (one controller, as the JAX engine is one object over a
+mesh), with the ring, double-buffered ring and all-gather propagate
+schedules and a distributed triangle top-k. ``shards`` defaults to one
+per visible card on the card and to one on the CPU. ``repro_torch.serve``
+serves an engine of either backend to concurrent clients.
+``engine.convert`` carries a JAX engine's state across as numpy arrays,
+and checkpoints cross between the packages as files, in either layout
+and from either backend; ``load(path, shards=S2)`` re-partitions the
+saved rows with no edge replay.
 
 ``impl`` selects the kernel implementation (``kernels.registry``):
 "cuda", the default, launches the CUDA kernels on the card (and runs
@@ -67,11 +80,24 @@ import torch
 from repro_torch.engine.base import (ENGINE_FORMAT, SketchEngine,
                                      resolve_device)
 from repro_torch.engine.local import LocalEngine
+from repro_torch.engine.sharded import ShardedEngine
 from repro_torch.kernels import packing, registry
 
-__all__ = ["SketchEngine", "LocalEngine", "open", "build", "load",
-           "default_device", "default_impl", "default_layout",
+__all__ = ["SketchEngine", "LocalEngine", "ShardedEngine", "open", "build",
+           "load", "default_device", "default_impl", "default_layout",
            "default_family"]
+
+_BACKENDS = ("local", "sharded")
+
+
+def _validate_backend(backend: str, shards) -> None:
+    """The JAX package's checks, before any allocation: a known backend,
+    and ``shards`` only with the sharded one."""
+    if backend not in _BACKENDS:
+        raise ValueError(f"backend must be one of {sorted(_BACKENDS)}, "
+                         f"got {backend!r}")
+    if backend != "sharded" and shards is not None:
+        raise ValueError("shards= only applies to backend='sharded'")
 
 
 def default_device() -> torch.device:
@@ -124,7 +150,8 @@ def _resolve_cfg(cfg, family: str | None):
 
 def open(n: int, cfg=None, *, layout: str | None = None,
          family: str | None = None, impl: str | None = None,
-         device=None) -> LocalEngine:
+         device=None, backend: str = "local",
+         shards: int | None = None) -> SketchEngine:
     """An empty engine over vertex universe [0, n), ready to ingest.
 
     Args:
@@ -141,15 +168,25 @@ def open(n: int, cfg=None, *, layout: str | None = None,
         :func:`default_impl`); any other name raises ``ValueError``
         before any allocation.
       device: "cuda", "cpu" or a torch device; ``None`` means the card.
+      backend: "local" (one panel on one device) or "sharded" (``shards``
+        row blocks, the vertex partition fixed now from ``(n, shards)``).
+      shards: shard count of the sharded backend; default one per visible
+        card on the card, one on the CPU. Passing it with another backend
+        raises ``ValueError``.
     """
-    return LocalEngine.open(n, _resolve_cfg(cfg, family),
-                            layout=layout or default_layout(),
-                            impl=impl or default_impl(), device=device)
+    _validate_backend(backend, shards)
+    cfg = _resolve_cfg(cfg, family)
+    kw = dict(layout=layout or default_layout(), impl=impl or default_impl(),
+              device=device)
+    if backend == "sharded":
+        return ShardedEngine.open(n, cfg, shards=shards, **kw)
+    return LocalEngine.open(n, cfg, **kw)
 
 
 def build(edges: np.ndarray, n: int | None = None, cfg=None, *,
           layout: str | None = None, family: str | None = None,
-          impl: str | None = None, device=None) -> LocalEngine:
+          impl: str | None = None, device=None, backend: str = "local",
+          shards: int | None = None) -> SketchEngine:
     """Accumulate a sketch table (Algorithm 1) and return a query engine.
 
     ``open(n, cfg)`` plus one ``ingest(edges)``, so the registers are
@@ -161,23 +198,30 @@ def build(edges: np.ndarray, n: int | None = None, cfg=None, *,
     if n is None:
         n = int(edges.max()) + 1 if len(edges) else 1
     return open(n, cfg, layout=layout, family=family, impl=impl,
-                device=device).ingest(edges)
+                device=device, backend=backend,
+                shards=shards).ingest(edges)
 
 
 def load(path: str, *, step: int | None = None, layout: str | None = None,
          family: str | None = None, impl: str | None = None,
-         device=None) -> LocalEngine:
-    """Restore a saved engine onto the local backend; queries answer as
-    before the save, and ingestion resumes where it stopped.
+         device=None, backend: str | None = None,
+         shards: int | None = None) -> SketchEngine:
+    """Restore a saved engine; queries answer as before the save, and
+    ingestion resumes where it stopped.
 
     Reads checkpoints of this package and of the JAX package, whichever
-    backend saved them: the register rows are canonical, so a sharded
-    save loads onto one device. The manifest's ``impl`` (the JAX
-    package's "ref" or "pallas") and ``shards`` say how the JAX package
-    ran and are ignored here: the engine takes ``impl``, or
-    :func:`default_impl`. A saved
-    ``replica_ids`` leaf is installed through ``replicate`` and written
-    back by the next ``save``.
+    backend saved them. ``backend`` and ``shards`` default to the saved
+    ones (a manifest without ``backend`` is local) and may be overridden:
+    the register rows are canonical, so a local save loads sharded and a
+    sharded one loads at any shard count or onto one device. Elastic
+    reshard: ``shards=S2`` re-partitions the saved rows
+    (``ShardedEngine.from_regs``) with no edge replay, and the routing
+    plan is rebuilt from the saved edges when a query needs it. The
+    manifest's ``impl`` (the JAX package's "ref" or "pallas") says how
+    the JAX package ran and is ignored here: the engine takes ``impl``,
+    or :func:`default_impl`. A saved ``replica_ids`` leaf is reinstalled
+    through ``replicate`` (the id set is the durable decision; the rows
+    come from the restored panel) and written back by the next ``save``.
 
     Args:
       path: the checkpoint directory (holding ``step_<k>``).
@@ -191,6 +235,7 @@ def load(path: str, *, step: int | None = None, layout: str | None = None,
         naming both.
       impl: as in :func:`open`.
       device: as in :func:`open`; ``None`` means the card.
+      backend / shards: as in :func:`open`; default the saved ones.
 
     Raises ``ValueError`` for a file that is no engine checkpoint, and
     for ``layout="packed"`` on an ADS checkpoint.
@@ -214,13 +259,21 @@ def load(path: str, *, step: int | None = None, layout: str | None = None,
     cfg = registry.family(fam_name).config_from_dict(extra["cfg"])
     impl = impl or default_impl()
     registry.resolve(cfg, layout, impl)  # fails before any file is read
+    backend = backend or extra.get("backend", "local")
+    _validate_backend(backend, shards)
+    if backend == "sharded" and shards is None:
+        shards = extra.get("shards")
     tree = restore_checkpoint(path, step)
     edges = (np.asarray(tree["edges"], dtype=np.int32).reshape(-1, 2)
              if "edges" in tree else None)
     regs = packing.to_layout(torch.from_numpy(
         np.asarray(tree["regs"], dtype=np.uint8)), saved, layout)
-    eng = LocalEngine.from_regs(regs, int(extra["n"]), cfg, edges=edges,
-                                layout=layout, impl=impl, device=device)
+    kw = dict(edges=edges, layout=layout, impl=impl, device=device)
+    if backend == "sharded":
+        eng = ShardedEngine.from_regs(regs, int(extra["n"]), cfg,
+                                      shards=shards, **kw)
+    else:
+        eng = LocalEngine.from_regs(regs, int(extra["n"]), cfg, **kw)
     if "replica_ids" in tree:
         eng.replicate(np.asarray(tree["replica_ids"], dtype=np.int64))
     return eng

@@ -1,9 +1,15 @@
 """SketchEngine: the persistent sketch query surface (port of
-``repro.engine.base``, the subset this slice serves).
+``repro.engine.base``).
 
-An engine owns an accumulated register panel ``uint8[n_pad, w]`` on one
-device: ``w = r`` bytes on the byte layout, ``r/2`` on the packed 4-bit
-layout (``kernels.packing``), whose kernels serve every query alike.
+An engine owns an accumulated register panel ``uint8[n_pad, w]``:
+``w = r`` bytes on the byte layout, ``r/2`` on the packed 4-bit
+layout (``kernels.packing``), whose kernels serve every query alike. The
+local backend holds it as one tensor on one device; the sharded backend
+(``engine.sharded``) as one block of rows per shard. The few places that
+read the panel as a whole go through backend hooks (per-shard row
+estimates, rows gathered for a query, the n true rows for merge and
+save, the lease clone), which the local backend implements on its one
+tensor.
 ``ingest(edge_block)`` folds edge blocks into it in place (Algorithm 1);
 queries answer from it:
 
@@ -18,7 +24,8 @@ queries answer from it:
   ``version``, extended incrementally and dropped on the next ingest, so a
   repeat on an unchanged engine runs zero propagate passes. Every name in
   ``SCHEDULES`` is accepted; a single-device backend runs one dataflow
-  for all of them, as the JAX local backend does
+  for all of them, as the JAX local backend does, and the sharded one
+  caches each schedule's panels apart
 * ``triangle_heavy_hitters(k, mode=)``   — Algorithms 4/5
 * ``distance_histogram / closeness / effective_diameter`` — HIP-curve
   distance queries of the ADS family, built on the same cached D^t
@@ -38,7 +45,8 @@ the writer's next in-place write first clones it, once per
 snapshot-then-write cycle (``_release_lease``), so a snapshot answers
 bit for bit at its version while the writer moves on. ``replicate(ids)``
 installs a hot-vertex replica set, carried by snapshots and checkpoints;
-on one device its rows are the owner rows themselves.
+on one device its rows are the owner rows themselves, and the sharded
+backend merges them from a replica panel in its propagate passes.
 
 Batched union, intersection and mixed queries resolve their plan through
 the shared :class:`~repro_torch.engine.plans.PlanCache`, which counts
@@ -74,8 +82,9 @@ __all__ = ["SketchEngine", "ENGINE_FORMAT", "SnapshotFrozen",
            "UnsupportedQuery", "SCHEDULES", "resolve_device",
            "validate_t_max", "pad_vertices"]
 
-#: Algorithm 2 schedules every backend accepts; the sharded backend (not
-#: ported yet) picks its dataflow by them, a single-device one ignores them
+#: Algorithm 2 schedules every backend accepts; the sharded backend picks
+#: its dataflow by them ("auto" is the ring), a single-device one ignores
+#: them
 SCHEDULES = ("auto", "ring", "ring_overlap", "allgather")
 
 
@@ -115,17 +124,20 @@ def _check_edge_ids(raw: np.ndarray, n: int, what: str) -> np.ndarray:
 
 @dataclass
 class _PanelSet:
-    """Materialized D^t register panels for one engine version.
+    """Materialized D^t register panels for one engine version and
+    schedule.
 
     ``panels[i]`` is D^{i+1}: ``panels[0]`` is the accumulated panel
     itself, each later entry one more Algorithm 2 pass over it. Valid only
-    while the engine's ``version`` equals ``version``. ``aux`` holds
+    while the engine's ``version`` equals ``version`` and the query's
+    schedule key (``_canonical_schedule``) equals ``schedule``. ``aux`` holds
     derived per-hop caches with the same lifetime: the ADS family's
     cumulative HIP curve rows (``aux["hip"][i]`` is C^{i+1}, host
     float64[n]).
     """
 
     version: int
+    schedule: str
     panels: list = field(default_factory=list)
     aux: dict = field(default_factory=dict)
 
@@ -134,8 +146,10 @@ class SketchEngine(abc.ABC):
     """Backend-agnostic persistent query engine over an accumulated sketch.
 
     Construct through :mod:`repro_torch.engine` (``open``/``build``) or
-    ``LocalEngine.from_regs``. Subclasses provide the block accumulation
-    step and one propagate pass.
+    ``from_regs``. Subclasses provide the block accumulation step and one
+    propagate pass; a backend whose panel is not one tensor also
+    overrides the panel hooks (``_estimate_panel``, ``_hip_delta_panel``,
+    ``_clone_panel``, ``_true_rows``, ``_max_into``, ``_query_panel``).
     """
 
     backend = "abstract"
@@ -332,14 +346,10 @@ class SketchEngine(abc.ABC):
                 f"n={other.n}")
         # ``other``'s rows are read by this call: a later in-place ingest
         # into ``other`` cannot reach them
-        rows = packing.to_layout(other.regs[: self.n].to(self.device),
+        rows = packing.to_layout(other._true_rows().to(self.device),
                                  other.layout, self.layout)
         self._release_lease()  # the merge writes the panel in place
-        head = self._regs[: self.n]
-        if self.layout == "packed":
-            head.copy_(packing.merge_rows(head, rows, self.layout))
-        else:
-            torch.maximum(head, rows, out=head)
+        self._max_into(rows)
         self._version += 1
         mine, theirs = self.edges, other.edges
         self._edges0 = (None if mine is None or theirs is None
@@ -368,8 +378,8 @@ class SketchEngine(abc.ABC):
         with or without replicas, and neither a replica panel nor a
         per-query concatenation of it is paid. The set itself is kept:
         serving placement decisions, snapshots and checkpoints carry it.
-        Gathering and remapping replica rows belongs to a sharded backend
-        (not ported yet).
+        The sharded backend merges the replica rows in its propagate
+        passes (``engine.sharded``).
 
         Args:
           vertex_ids: integer vertex ids in [0, n); duplicates collapse.
@@ -386,7 +396,12 @@ class SketchEngine(abc.ABC):
                 f"replicate got vertex ids [{ids[0]}, {ids[-1]}] outside "
                 f"the engine's universe [0, {self.n})")
         self._replica_ids = ids if len(ids) else None
+        self._on_replicas_changed()
         return self
+
+    def _on_replicas_changed(self) -> None:
+        """Hook: a new replica id set was installed (the sharded backend
+        reroutes its propagate plan)."""
 
     # ----------------------------------------------------------- snapshots
     def snapshot(self) -> "SketchEngine":
@@ -416,7 +431,8 @@ class SketchEngine(abc.ABC):
         ps = self._panel_set
         if ps is not None and ps.version == self._version:
             snap._panel_set = _PanelSet(
-                version=ps.version, panels=list(ps.panels),
+                version=ps.version, schedule=ps.schedule,
+                panels=list(ps.panels),
                 aux={k: list(v) for k, v in ps.aux.items()})
         else:
             snap._panel_set = None
@@ -439,7 +455,7 @@ class SketchEngine(abc.ABC):
         ``"lease_clone"`` event.
         """
         if self._lessees:
-            self._regs = self._regs.clone()
+            self._regs = self._clone_panel(self._regs)
             self._lessees = weakref.WeakSet()
             plans.record_event("lease_clone")
 
@@ -466,8 +482,7 @@ class SketchEngine(abc.ABC):
     # the panel and the replica rows on every query, as the JAX plans do.
     def degrees(self) -> np.ndarray:
         """d̃(x) for every vertex x < n, float32[n]."""
-        est = self.kernels.estimate_rows(self._regs, self.cfg)
-        return est.cpu().numpy()[: self.n]
+        return self._estimate_panel(self._regs)
 
     def _require_kind(self, kind: str) -> None:
         """Gate a query kind on the family's declared query surface."""
@@ -499,7 +514,8 @@ class SketchEngine(abc.ABC):
         fn = self._plan("union", bucket=ids.shape,
                         builder=lambda: plans.build_union_plan(self.cfg,
                                                                self.kernels))
-        return fn(self._regs, ids, mask).cpu().numpy()[: len(sets)]
+        panel, ids = self._query_panel(ids)
+        return fn(panel, ids, mask).cpu().numpy()[: len(sets)]
 
     def intersection_size(self, pairs, *, method: str = "mle",
                           iters: int | None = None):
@@ -537,7 +553,8 @@ class SketchEngine(abc.ABC):
             "intersection", bucket=(ids.shape[0],), extra=(method, iters),
             builder=lambda: plans.build_intersection_plan(
                 self.cfg, self.kernels, method, iters))
-        return fn(self._regs, ids).cpu().numpy()[: arr.shape[0]]
+        panel, ids = self._query_panel(ids)
+        return fn(panel, ids).cpu().numpy()[: arr.shape[0]]
 
     def query_batch(self, *, vertex_sets=None, pairs=None,
                     degrees: bool = False, method: str = "mle",
@@ -606,7 +623,8 @@ class SketchEngine(abc.ABC):
             extra=(kinds, method, iters),
             builder=lambda: plans.build_mixed_plan(self.cfg, self.kernels,
                                                    kinds, method, iters))
-        raw = fn(self._regs, u_ids, u_mask, p_ids)
+        panel, u_ids, p_ids = self._query_panel(u_ids, p_ids)
+        raw = fn(panel, u_ids, u_mask, p_ids)
         out = {}
         if "degrees" in raw:
             out["degrees"] = raw["degrees"].cpu().numpy()[: self.n]
@@ -626,37 +644,42 @@ class SketchEngine(abc.ABC):
             return 0
         return len(ps.panels)
 
-    def _panels_up_to(self, t_max: int) -> list:
-        """The D^1..D^{t_max} panels, served from and extending the cache.
+    def _panels_up_to(self, t_max: int, sched: str | None = None) -> list:
+        """The D^1..D^{t_max} panels under schedule key ``sched`` (default:
+        that of "auto"), served from and extending the cache, which holds
+        one (version, schedule) at a time.
 
         Serialized under the engine's lock: a snapshot may be served by
         several reader threads, and extending the cache is the one lazy
         mutation a query makes.
         """
+        sched = sched or self._canonical_schedule("auto")
         with self._snap_lock:
             ps = self._panel_set
-            if ps is None or ps.version != self._version:
-                ps = _PanelSet(version=self._version, panels=[self._regs])
+            if (ps is None or ps.version != self._version
+                    or ps.schedule != sched):
+                ps = _PanelSet(version=self._version, schedule=sched,
+                               panels=[self._regs])
                 self._panel_set = ps
             while len(ps.panels) < min(t_max, self.MAX_CACHED_PANELS):
-                ps.panels.append(self._propagate_pass(ps.panels[-1]))
+                ps.panels.append(self._propagate_pass(ps.panels[-1], sched))
             out = list(ps.panels[:t_max])
         while len(out) < t_max:  # beyond the memory bound: transient
-            out.append(self._propagate_pass(out[-1]))
+            out.append(self._propagate_pass(out[-1], sched))
         return out
 
-    def _propagate_pass(self, regs: torch.Tensor) -> torch.Tensor:
+    def _propagate_pass(self, regs, sched: str):
         """One counted Algorithm 2 pass (the only propagate entry point)."""
-        out = self._propagate(regs)
+        out = self._propagate(regs, sched)
         self.propagate_passes += 1
         plans.record_event("propagate_pass")
         return out
 
     def _canonical_schedule(self, schedule: str) -> str:
         """Validate ``schedule`` (one of :data:`SCHEDULES`, ``ValueError``
-        otherwise) and return the panel-cache key it maps to: a single
-        device runs one dataflow for every schedule, so all share one
-        key (the servers coalesce hop queries by it)."""
+        otherwise) and return the panel-cache key it maps to (the servers
+        coalesce hop queries by it): a single device runs one dataflow for
+        every schedule, so all share one key."""
         if schedule not in SCHEDULES:
             raise ValueError(
                 f"schedule must be one of {SCHEDULES}, got {schedule!r}")
@@ -684,17 +707,17 @@ class SketchEngine(abc.ABC):
         names raise ``ValueError``.
         """
         t_max = self._check_hop_query("neighborhood", t_max, schedule)
+        sched = self._canonical_schedule(schedule)
         local = np.zeros((t_max, self.n), dtype=np.float64)
         glob = np.zeros((t_max,), dtype=np.float64)
-        for t, regs in enumerate(self._panels_up_to(t_max), start=1):
-            est = self.kernels.estimate_rows(regs, self.cfg)
-            est = est.cpu().numpy()[: self.n]
+        for t, regs in enumerate(self._panels_up_to(t_max, sched), start=1):
+            est = self._estimate_panel(regs)
             local[t - 1] = est
             glob[t - 1] = est.sum()
         return local, glob
 
     # --------------------------------------------- HIP distance queries
-    def _hip_curve(self, t_max: int) -> np.ndarray:
+    def _hip_curve(self, t_max: int, sched: str | None = None) -> np.ndarray:
         """Cumulative batch-HIP curve C^t float64[t_max, n] (ADS family).
 
         C^1 is the plain row estimate of D^1; each later hop adds the
@@ -705,20 +728,22 @@ class SketchEngine(abc.ABC):
         :attr:`MAX_CACHED_PANELS` are computed transiently, and the
         version bump of ingest and merge drops the cache.
         """
-        panels = self._panels_up_to(t_max)
+        sched = sched or self._canonical_schedule("auto")
+        panels = self._panels_up_to(t_max, sched)
         with self._snap_lock:
-            cached = self._panel_set.aux.setdefault("hip", [])
+            ps = self._panel_set
+            cached = (ps.aux.setdefault("hip", []) if ps is not None
+                      and ps.version == self._version
+                      and ps.schedule == sched else [])
             rows = list(cached[:t_max])
             while len(rows) < t_max:
                 i = len(rows)  # panels[i] is D^{i+1}
-                plain = self.kernels.estimate_rows(panels[i], self.cfg)
-                plain = plain.cpu().numpy()[: self.n]
-                plain = plain.astype(np.float64)
+                plain = self._estimate_panel(panels[i]).astype(np.float64)
                 if i == 0:
                     cur = plain
                 else:
-                    delta = self.kernels.hip_delta(panels[i - 1], panels[i])
-                    delta = delta.cpu().numpy()[: self.n].astype(np.float64)
+                    delta = self._hip_delta_panel(panels[i - 1], panels[i])
+                    delta = delta.astype(np.float64)
                     cur = np.maximum(rows[i - 1] + delta, plain)
                 rows.append(cur)
                 if len(cached) == i and i < self.MAX_CACHED_PANELS:
@@ -737,7 +762,8 @@ class SketchEngine(abc.ABC):
         :meth:`neighborhood`.
         """
         t_max = self._check_hop_query("distance_histogram", t_max, schedule)
-        hist = self.family.hip_histogram(self._hip_curve(t_max))
+        curve = self._hip_curve(t_max, self._canonical_schedule(schedule))
+        hist = self.family.hip_histogram(curve)
         return hist, hist.sum(axis=1)
 
     def closeness(self, t_max: int, schedule: str = "auto") -> np.ndarray:
@@ -748,7 +774,8 @@ class SketchEngine(abc.ABC):
         Returns float64[n]; isolated vertices get 0.
         """
         t_max = self._check_hop_query("closeness", t_max, schedule)
-        return self.family.hip_closeness(self._hip_curve(t_max))
+        return self.family.hip_closeness(
+            self._hip_curve(t_max, self._canonical_schedule(schedule)))
 
     def effective_diameter(self, t_max: int, q: float = 0.9,
                            schedule: str = "auto") -> float:
@@ -758,7 +785,8 @@ class SketchEngine(abc.ABC):
         family only). ``q`` must lie in (0, 1].
         """
         t_max = self._check_hop_query("effective_diameter", t_max, schedule)
-        glob = self._hip_curve(t_max).sum(axis=1)
+        glob = self._hip_curve(
+            t_max, self._canonical_schedule(schedule)).sum(axis=1)
         return float(self.family.hip_effective_diameter(glob, q))
 
     # -------------------------------------------------------- persistence
@@ -776,7 +804,7 @@ class SketchEngine(abc.ABC):
         records none.
         Call it between ingest blocks, not during one.
         """
-        tree = {"regs": self._regs[: self.n].to("cpu", copy=True).numpy()}
+        tree = {"regs": self._true_rows().to("cpu", copy=True).numpy()}
         edges = self.edges
         if edges is not None:
             tree["edges"] = edges
@@ -791,7 +819,13 @@ class SketchEngine(abc.ABC):
             "m_ingested": self.m,
             "cfg": self.family.config_dict(self.cfg),
         }
+        extra.update(self._save_extra())
         return tree, extra
+
+    def _save_extra(self) -> dict:
+        """Backend-specific manifest keys (the sharded backend's
+        ``shards``)."""
+        return {}
 
     def save(self, path: str, step: int = 0) -> str:
         """Persist the sketch as checkpoint step ``step`` under ``path``.
@@ -806,6 +840,42 @@ class SketchEngine(abc.ABC):
         tree, extra = self.checkpoint_state()
         return save_checkpoint(path, step, tree, extra=extra)
 
+    # ------------------------------------------------ panel backend hooks
+    # The local backend's panel is one tensor; the sharded backend
+    # overrides each of these for its per-shard blocks.
+    def _estimate_panel(self, panel) -> np.ndarray:
+        """Row estimates float32[n] of a D^t panel (one estimate launch)."""
+        est = self.kernels.estimate_rows(panel, self.cfg)
+        return est.cpu().numpy()[: self.n]
+
+    def _hip_delta_panel(self, prev, cur) -> np.ndarray:
+        """HIP increments float32[n] between two hop panels (ADS)."""
+        return self.kernels.hip_delta(prev, cur).cpu().numpy()[: self.n]
+
+    def _clone_panel(self, panel):
+        """A copy of the register panel (the lease clone)."""
+        return panel.clone()
+
+    def _true_rows(self) -> torch.Tensor:
+        """The n true rows uint8[n, w] on :attr:`device` (a view here;
+        merge and save read them)."""
+        return self._regs[: self.n]
+
+    def _max_into(self, rows: torch.Tensor) -> None:
+        """Fold ``rows`` uint8[n, w] (this engine's layout and device) into
+        the n true rows in place, nibble by nibble on the packed layout."""
+        head = self._regs[: self.n]
+        if self.layout == "packed":
+            head.copy_(packing.merge_rows(head, rows, self.layout))
+        else:
+            torch.maximum(head, rows, out=head)
+
+    def _query_panel(self, *ids: np.ndarray) -> tuple:
+        """The panel a union, intersection or mixed plan reads and the id
+        arrays remapped onto it: here the whole panel and the ids as they
+        are."""
+        return (self._regs, *ids)
+
     # ----------------------------------------------------- backend hooks
     @abc.abstractmethod
     def _accumulate_block(self, chunk: np.ndarray) -> None:
@@ -813,8 +883,9 @@ class SketchEngine(abc.ABC):
         into ``self._regs`` in place."""
 
     @abc.abstractmethod
-    def _propagate(self, regs: torch.Tensor) -> torch.Tensor:
-        """One Algorithm 2 pass: D^t[x] = D^{t-1}[x] ∪̃ (∪̃_{xy∈E} D^{t-1}[y])."""
+    def _propagate(self, regs, schedule: str):
+        """One Algorithm 2 pass under the schedule key ``schedule``:
+        D^t[x] = D^{t-1}[x] ∪̃ (∪̃_{xy∈E} D^{t-1}[y])."""
 
     @abc.abstractmethod
     def triangle_heavy_hitters(self, k: int, *, mode: str = "edge",

@@ -100,7 +100,7 @@ class LocalEngine(SketchEngine):
         rows, keys = directed_block(chunk, self.device)
         self.kernels.accumulate(self._regs, rows, keys, self.cfg)
 
-    def _propagate(self, regs: torch.Tensor) -> torch.Tensor:
+    def _propagate(self, regs: torch.Tensor, schedule: str) -> torch.Tensor:
         if self._prop_routing is None:
             self._prop_routing = directed_routing(
                 self._require_edges("neighborhood"), self.device)

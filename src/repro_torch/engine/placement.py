@@ -19,9 +19,11 @@ stream sketches). This module (DESIGN.md §12) turns placement into a
   sharded query plan that concatenates the replica panel below the
   register table reads byte-identical rows through the remapped ids, so
   replica-on answers are bit-identical to owner-only execution by
-  construction. The port's local backend has no owner shard to spare and
-  gathers the owner rows (``engine.base``); the remap waits for the
-  sharded backend.
+  construction. The port's backends gather the owner rows for queries
+  (the local one has no owner shard to spare; the sharded one gathers a
+  compact panel from the owners) and use no remap: the sharded backend
+  serves its replica rows to the propagate pre-pass instead
+  (``distributed.sketch_dist``).
 * :func:`gather_traffic` — the deterministic cost model: per-owner-shard
   row-fetch counts for a query id stream, with and without a replica
   set (analytic, jitter-free).

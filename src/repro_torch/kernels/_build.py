@@ -54,6 +54,8 @@ KERNELS = {
     "hll_estimate_stats": (_P, _P, _I64, _I32, _P),
     # regs, out, src, dst, n_edges, n_rows, r, stream
     "hll_propagate": (_P, _P, _P, _P, _I64, _I64, _I32, _P),
+    # src_panel, out, src, dst, n_edges, n_src, n_out, r, stream
+    "hll_propagate_into": (_P, _P, _P, _P, _I64, _I64, _I64, _I32, _P),
     # regs, pa, pb, stats, sz, n_pairs, n_rows, r, q, stream
     "intersection_stats": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
     # regs, ids, mask, out, n_sets, n_rows, lanes, r, stream
@@ -67,7 +69,8 @@ KERNELS = {
 #: the register count (the row is r/2 bytes)
 KERNELS.update({f"{name}_packed": KERNELS[name] for name in (
     "hll_accumulate", "hll_estimate_stats", "hll_propagate",
-    "intersection_stats", "union_estimate_stats", "ertl_stats")})
+    "hll_propagate_into", "intersection_stats", "union_estimate_stats",
+    "ertl_stats")})
 
 _LAUNCHES = {name: 0 for name in KERNELS}
 _LAUNCH_LOCK = threading.Lock()

@@ -15,6 +15,16 @@ that order, the engine builds its routing with it once per version, and
 ``ops.propagate`` sorts a routing it finds out of order.
 On a CPU tensor the wrapper runs :func:`plain`, the plain PyTorch
 version, which takes the edges in any order.
+
+:func:`hll_propagate_into` wraps the same source's two-panel launchers
+(``hll_propagate_into``, ``hll_propagate_into_packed``), the port's
+kernel for the JAX package's ``packing.scatter_max_rows`` (plain jnp,
+no Pallas kernel), the merge step of the sharded schedules:
+``out[dst[e]] max= src_panel[src[e]]`` in place, where ``src`` indexes
+``src_panel`` and ``dst`` indexes ``out``, two panels of their own row
+counts. The base is ``out[d]`` and ``src == dst`` is a real edge (a
+ring step's block holds other vertices than the shard it merges into).
+:func:`plain_into` is its plain version.
 """
 from __future__ import annotations
 
@@ -22,7 +32,8 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["dst_sorted", "hll_propagate", "plain", "sort_routing"]
+__all__ = ["dst_sorted", "hll_propagate", "hll_propagate_into", "plain",
+           "plain_into", "sort_routing"]
 
 
 def sort_routing(src: torch.Tensor, dst: torch.Tensor,
@@ -70,4 +81,61 @@ def hll_propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     _build.launch(_build.kernel_name("hll_propagate", layout), regs.device,
                   regs.data_ptr(), out.data_ptr(), src.data_ptr(),
                   dst.data_ptr(), src.shape[0], v, r, _build.stream_of(regs))
+    return out
+
+
+def plain_into(out: torch.Tensor, src_panel: torch.Tensor, src: torch.Tensor,
+               dst: torch.Tensor, *, layout: str = "byte") -> torch.Tensor:
+    """Plain PyTorch version of the two-panel merge
+    (``ref.hll_propagate_into_ref``, every edge live); returns ``out``."""
+    return ref.hll_propagate_into_ref(
+        out, src_panel, src, dst, torch.ones_like(src, dtype=torch.bool),
+        layout=layout)
+
+
+def hll_propagate_into(out: torch.Tensor, src_panel: torch.Tensor,
+                       src: torch.Tensor, dst: torch.Tensor, *,
+                       layout: str = "byte",
+                       check_order: bool = True) -> torch.Tensor:
+    """out: uint8[V_out, w] (merged in place); src_panel: uint8[V_src, w]
+    of the same layout, another allocation; src int32[E] in [0, V_src),
+    dst int32[E] in [0, V_out), ``dst`` non-decreasing on the card.
+    Returns ``out``.
+
+    ``check_order=False`` skips the order check (a host sync) for a
+    routing whose order its maker guarantees, as the sharded plan's
+    groups are built dst-sorted. An empty routing launches nothing.
+    """
+    on_card = _build.check_device(out, "out")
+    v_out, r = _build.check_panel(out, layout)
+    if _build.check_device(src_panel, "src_panel") != on_card or (
+            on_card and src_panel.device != out.device):
+        raise ValueError(f"src_panel is on {src_panel.device}, out on "
+                         f"{out.device}")
+    v_src, r_src = _build.check_panel(src_panel, layout)
+    if r_src != r:
+        raise ValueError(f"src_panel rows hold {r_src} registers, out rows "
+                         f"{r}")
+    _build.check_ids(src, "src", out)
+    _build.check_ids(dst, "dst", out, src.shape[0])
+    if not on_card:
+        return plain_into(out, src_panel, src, dst, layout=layout)
+    lo, hi = out.data_ptr(), out.data_ptr() + out.numel()
+    s_lo = src_panel.data_ptr()
+    if s_lo < hi and lo < s_lo + src_panel.numel():
+        raise ValueError("src_panel overlaps out: the kernel reads the "
+                         "source rows through the read-only cache")
+    if (lo | s_lo) % 16:
+        raise ValueError("out and src_panel must be 16-byte aligned on the "
+                         "card: the kernel reads rows in 16-byte words")
+    if check_order and not dst_sorted(dst):
+        raise ValueError("dst must be non-decreasing on the card: the "
+                         "kernel pulls over a dst-sorted routing (sort it "
+                         "with sort_routing)")
+    if src.shape[0] == 0:
+        return out
+    _build.launch(_build.kernel_name("hll_propagate_into", layout),
+                  out.device, src_panel.data_ptr(), out.data_ptr(),
+                  src.data_ptr(), dst.data_ptr(), src.shape[0], v_src, v_out,
+                  r, _build.stream_of(out))
     return out

@@ -2,6 +2,9 @@
 
 * accumulate: masked edges are skipped by the kernel and park on row 0
   with rho 0 in the plain version, ``ops.py:77-87``;
+* propagate_into: the two-panel merge of the sharded schedules (the JAX
+  package's ``packing.scatter_max_rows``) over a dst-sorted group, as
+  the sharded plan builds it;
 * propagate: masked slots are dropped before the launch, which equals
   the JAX package's parking of them on ``(0, 0)``, a self-merge no-op
   (``ops.py:178-180``); on the card a routing whose ``dst`` is not
@@ -55,12 +58,13 @@ from repro_torch.kernels.hip_delta import hip_delta_rows
 from repro_torch.kernels.hll_accumulate import hll_accumulate
 from repro_torch.kernels.hll_estimate import hll_estimate_stats
 from repro_torch.kernels.hll_propagate import (
-    dst_sorted, hll_propagate, sort_routing)
+    dst_sorted, hll_propagate, hll_propagate_into, sort_routing)
 from repro_torch.kernels.intersection_stats import (
     intersection_stats as _intersection_stats)
 from repro_torch.kernels.union_estimate import union_estimate_stats
 
-__all__ = ["accumulate", "propagate", "estimate", "union_estimate",
+__all__ = ["accumulate", "propagate", "propagate_into", "estimate",
+           "union_estimate",
            "intersection_stats", "ertl_stats", "hip_delta", "IMPLS"]
 
 #: the kernel implementations every op serves
@@ -101,6 +105,19 @@ def propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
         if regs.data_ptr() % 16:
             regs = regs.clone()
     return hll_propagate(regs, src, dst, layout=layout)
+
+
+def propagate_into(out: torch.Tensor, src_panel: torch.Tensor,
+                   src: torch.Tensor, dst: torch.Tensor,
+                   layout: str = "byte", impl: str = "cuda") -> torch.Tensor:
+    """``out[dst] max= src_panel[src]`` in place (``src`` rows of
+    ``src_panel``, ``dst`` rows of ``out``); returns ``out``. ``dst``
+    must be non-decreasing: the sharded plan builds its groups so, and
+    the card's kernel takes that order unchecked (no host sync)."""
+    if _plain(impl):
+        return _prop.plain_into(out, src_panel, src, dst, layout=layout)
+    return hll_propagate_into(out, src_panel, src, dst, layout=layout,
+                              check_order=False)
 
 
 def estimate(regs: torch.Tensor, cfg, layout: str = "byte",

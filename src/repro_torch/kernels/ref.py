@@ -25,7 +25,8 @@ import torch
 
 from repro_torch.kernels.packing import unpack_rows
 
-__all__ = ["hll_accumulate_ref", "hll_propagate_ref", "hll_estimate_ref",
+__all__ = ["hll_accumulate_ref", "hll_propagate_ref",
+           "hll_propagate_into_ref", "hll_estimate_ref",
            "union_estimate_ref", "intersection_stats_ref", "ertl_stats_ref",
            "hip_delta_ref", "packed_stats", "EDGE_CHUNK", "ROW_CHUNK",
            "PROPAGATE_CHUNK", "PAIR_CHUNK", "UNION_CHUNK_BYTES",
@@ -107,20 +108,39 @@ def hll_propagate_ref(regs: torch.Tensor, src: torch.Tensor,
     edges are no-ops. On a packed panel the max runs on the two nibble
     planes. Returns a new panel.
     """
+    return hll_propagate_into_ref(regs.clone(), regs, src, dst, mask,
+                                  layout=layout)
+
+
+def hll_propagate_into_ref(out: torch.Tensor, src_panel: torch.Tensor,
+                           src: torch.Tensor, dst: torch.Tensor,
+                           mask: torch.Tensor,
+                           layout: str = "byte") -> torch.Tensor:
+    """Two-panel row gather-max in place:
+    out[dst[e]] <- max(out[dst[e]], src_panel[src[e]]).
+
+    ``src`` indexes ``src_panel`` (its own rows), ``dst`` indexes ``out``:
+    the merge step of the sharded schedules (the JAX package's
+    ``packing.scatter_max_rows`` over a gathered panel). Every live edge
+    counts, ``src == dst`` included; mask=False edges are no-ops. On a
+    packed panel the max runs on the two nibble planes. Returns ``out``.
+    """
     packed = layout == "packed"
-    planes = [regs & 0x0F, regs >> 4] if packed else [regs.clone()]
-    w = regs.shape[1]
-    lanes = torch.arange(w, device=regs.device, dtype=torch.int64)
-    empty = torch.zeros((), dtype=regs.dtype, device=regs.device)
+    planes = [out & 0x0F, out >> 4] if packed else [out]
+    w = out.shape[1]
+    lanes = torch.arange(w, device=out.device, dtype=torch.int64)
+    empty = torch.zeros((), dtype=out.dtype, device=out.device)
     for s in range(0, src.shape[0], PROPAGATE_CHUNK):
         keep = mask[s:s + PROPAGATE_CHUNK, None]
-        rows = torch.where(keep, regs[src[s:s + PROPAGATE_CHUNK]], empty)
+        rows = torch.where(keep, src_panel[src[s:s + PROPAGATE_CHUNK]], empty)
         idx = dst[s:s + PROPAGATE_CHUNK].to(torch.int64)[:, None] * w + lanes
         vals = [rows & 0x0F, rows >> 4] if packed else [rows]
         for plane, v in zip(planes, vals):
             plane.view(-1).scatter_reduce_(0, idx.reshape(-1), v.reshape(-1),
                                            reduce="amax")
-    return planes[0] | (planes[1] << 4) if packed else planes[0]
+    if packed:
+        out.copy_(planes[0] | (planes[1] << 4))
+    return out
 
 
 def packed_stats(u: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

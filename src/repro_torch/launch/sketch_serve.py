@@ -28,10 +28,10 @@ replication, then printing the modeled max-owner gather-traffic ratio.
 ``--impl`` picks the kernel implementation, as the JAX launcher's does:
 ``cuda`` (the default: the CUDA kernels on the card, their plain
 versions on the CPU) or ``ref`` (the plain PyTorch versions on either
-device, no kernel launched). The port has one backend (local), so the
-JAX launcher's ``--backend`` and ``--shards`` are gone: a sharded request
-is an unrecognized argument and exits with an error rather than running
-locally.
+device, no kernel launched). ``--backend sharded --shards S`` serves a
+sharded engine (``S`` row blocks; default one per visible card on the
+card, one on the CPU), as the JAX launcher's flags do; ``--shards`` with
+the local backend is an error.
 
     PYTHONPATH=src python -m repro_torch.launch.sketch_serve \
         --scale 10 --clients 6 --requests 40 --ingest-blocks 8
@@ -44,6 +44,9 @@ locally.
         --smoke --device cpu
     PYTHONPATH=src python -m repro_torch.launch.sketch_serve \
         --smoke --impl ref
+    PYTHONPATH=src python -m repro_torch.launch.sketch_serve \
+        --smoke --device cpu --backend sharded --shards 2 \
+        --zipf 1.3 --replicate 16
 """
 from __future__ import annotations
 
@@ -128,6 +131,12 @@ def main(argv: list[str] | None = None) -> None:
     ap.add_argument("--impl", default="cuda", choices=("cuda", "ref"),
                     help="kernel implementation: cuda (the kernels on the "
                          "card) or ref (their plain versions, any device)")
+    ap.add_argument("--backend", default="local",
+                    choices=("local", "sharded"),
+                    help="engine backend (sharded: --shards row blocks)")
+    ap.add_argument("--shards", type=int, default=None,
+                    help="shards of the sharded backend (default: one per "
+                         "visible card, one on the CPU)")
     ap.add_argument("--clients", type=int, default=4,
                     help="concurrent query client threads")
     ap.add_argument("--requests", type=int, default=25,
@@ -165,6 +174,8 @@ def main(argv: list[str] | None = None) -> None:
     # query; triangle is left to its dedicated launcher
     kinds = tuple(k for k in fam.query_kinds if k not in ("mixed",
                                                           "triangle"))
+    if args.shards is not None and args.backend != "sharded":
+        ap.error("--shards only applies to --backend sharded")
     if args.replicate and "union" not in fam.query_kinds:
         ap.error(f"--replicate probes union/intersection answers, which "
                  f"family {fam.name!r} does not serve")
@@ -172,13 +183,16 @@ def main(argv: list[str] | None = None) -> None:
     edges = gen.rmat(args.scale, args.deg, seed=0)
     n = int(edges.max()) + 1
     hold = len(edges) // 4 if args.ingest_blocks else 0  # live-ingest tail
-    eng = engine.open(n, cfg, impl=args.impl, device=args.device)
+    where = dict(impl=args.impl, device=args.device, backend=args.backend,
+                 shards=args.shards)
+    eng = engine.open(n, cfg, **where)
     eng.ingest(edges[: len(edges) - hold])
     mode = "continuous (snapshot rotation)" if args.continuous else \
         "epoch barrier"
     print(f"graph: n={n} m={len(edges)} (serving with {hold} edges held "
-          f"back for live ingest); family={fam.name} backend=local "
-          f"device={eng.device} impl={eng.impl} mode={mode}")
+          f"back for live ingest); family={fam.name} backend={eng.backend} "
+          f"shards={getattr(eng, 'shards', 1)} device={eng.device} "
+          f"impl={eng.impl} mode={mode}")
 
     plans.reset_trace_counts()
     t0 = time.monotonic()
@@ -229,7 +243,7 @@ def main(argv: list[str] | None = None) -> None:
             counts = server.access_stats.counts()
             stream = np.repeat(np.arange(len(counts), dtype=np.int64),
                                counts)
-            shards = 1
+            shards = getattr(eng, "shards", 1)
             off = placement.gather_traffic(stream, eng.n_pad, shards)
             on = placement.gather_traffic(stream, eng.n_pad, shards,
                                           hot_ids=installed)
@@ -253,8 +267,7 @@ def main(argv: list[str] | None = None) -> None:
     if args.continuous:
         # rotation must never change an answer: post-flush served answers
         # are bit-identical to a direct engine call on the full edge set
-        direct = engine.build(edges, n, cfg, impl=args.impl,
-                              device=args.device)
+        direct = engine.build(edges, n, cfg, **where)
         assert np.array_equal(served_deg, np.asarray(direct.degrees())), \
             "served degrees diverged from direct engine state"
         _, glob_direct = direct.neighborhood(args.t_max)

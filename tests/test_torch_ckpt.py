@@ -201,7 +201,7 @@ def test_jax_checkpoint_loads_in_the_port(graph, tmp_path, family, backend):
     want = _jax(edges, n, family, backend=backend, **kw)
     want.save(str(tmp_path / "ck"))
     back = engine.load(str(tmp_path / "ck"), device="cpu")
-    assert back.family.name == family and back.backend == "local"
+    assert back.family.name == family and back.backend == backend
     np.testing.assert_array_equal(_regs(back), _regs(want))
     np.testing.assert_array_equal(back.edges, np.asarray(want.edges))
     _same_answers(back, _port(edges, n, family))

@@ -15,7 +15,10 @@ registers fell, and the packed layout's six kernels (p = 4-16, registers
 at and above 15 before packing, the nibble-merge trap, exact sums); the
 pair kernel on zero-heavy, all-zero, all-equal and foreign rows (its
 byte sums equal the estimate kernel's bit for bit), and the union kernel
-on a 1,024-member set among singletons and on one-lane panels.
+on a 1,024-member set among singletons and on one-lane panels; the
+two-panel propagate launchers on panels of other row counts, self-index
+pairs, hub segments across run boundaries and an empty routing, and the
+sharded engine on the card (1 and 4 shards) against the local one.
 Tolerances as in ``tests/test_torch_kernels.py``: panels, histograms and
 zero counts exact, harmonic sums ``rtol=1e-6`` (packed sums exact), HIP
 increments exact (both sum exactly and round once); the card engine
@@ -1231,3 +1234,126 @@ def test_ref_impl_on_the_card_launches_nothing_and_equals_cuda(dev, layout):
         want = engine.build(edges, n, ADSConfig(p=8)).distance_histogram(3)
         for a, b in zip(ref_hist, want):
             assert np.array_equal(a, b)
+
+
+# Two-panel propagate (hll_propagate_into / _packed): the sharded
+# schedules' merge ``out[dst] max= src_panel[src]`` in place. Panels of
+# other row counts, src == dst pairs that name two different vertices (a
+# skip would drop them), hub segments that cross run boundaries, and an
+# empty routing (no launch).
+
+def _into_case(rng, case, v_src, v_out):
+    """(src, dst) numpy routing of ``case`` (unsorted)."""
+    src = rng.integers(0, v_src, 3_000)
+    dst = rng.integers(0, v_out, 3_000)
+    if case == "self_index":  # every pair src == dst, over a whole run
+        k = min(v_src, v_out)
+        src = dst = np.repeat(np.arange(k), 2_100 // k + 1)[:2_100]
+    elif case == "hub":  # segments of 2,049-2,500 edges: every one crosses
+        lens = rng.integers(2_049, 2_500, 3)
+        dst = np.concatenate([np.repeat(rng.choice(v_out, 3, replace=False),
+                                        lens), dst[:500]])
+        src = rng.integers(0, v_src, dst.shape[0])
+    elif case == "empty":
+        src = dst = np.zeros(0, np.int64)
+    return src, dst
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+@pytest.mark.parametrize("p", [4, 8, 12, 16])
+@pytest.mark.parametrize("case", ["v_src_less", "v_src_more", "self_index",
+                                  "hub", "empty"])
+def test_propagate_into_matches_plain(dev, layout, p, case):
+    rng = np.random.default_rng(p * 11 + len(case))
+    v_src, v_out = {"v_src_less": (37, 301), "v_src_more": (301, 37)}.get(
+        case, (200, 200))
+    make = ((lambda v: _packed_panel(rng, v, p, dev)) if layout == "packed"
+            else (lambda v: _panel(rng, v, p, 40, dev)))
+    src_panel, out = make(v_src), make(v_out)
+    out[rng.random(v_out) < 0.3] = 0
+    src_t, dst_t = _routing(*_into_case(rng, case, v_src, v_out), dev)
+    want = hll_propagate.plain_into(out.clone(), src_panel, src_t, dst_t,
+                                    layout=layout)
+    name = _build.kernel_name("hll_propagate_into", layout)
+    if case == "empty":
+        before = _build.launch_counts()[name]
+        got = hll_propagate.hll_propagate_into(out.clone(), src_panel, src_t,
+                                               dst_t, layout=layout)
+        assert _build.launch_counts()[name] == before
+    else:
+        target = out.clone()
+        got = _launched(name, lambda: hll_propagate.hll_propagate_into(
+            target, src_panel, src_t, dst_t, layout=layout))
+        assert got.data_ptr() == target.data_ptr()  # in place
+    assert torch.equal(got, want)
+    if case == "self_index":  # the merges took: a skip would leave out
+        assert not torch.equal(got, out)
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+def test_propagate_into_checks_its_panels(dev, layout):
+    rng = np.random.default_rng(5)
+    make = ((lambda v: _packed_panel(rng, v, 6, dev)) if layout == "packed"
+            else (lambda v: _panel(rng, v, 6, 40, dev)))
+    out, other = make(16), make(16)
+    src = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    dst = torch.tensor([3, 1], dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="non-decreasing"):
+        hll_propagate.hll_propagate_into(out, other, src, dst, layout=layout)
+    with pytest.raises(ValueError, match="overlaps"):
+        hll_propagate.hll_propagate_into(out, out[4:], src, dst.sort()[0],
+                                         layout=layout)
+    with pytest.raises(ValueError, match="registers"):
+        hll_propagate.hll_propagate_into(out, make(16)[:, :8].contiguous(),
+                                         src, dst.sort()[0], layout=layout)
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+@pytest.mark.parametrize("shards", [1, 4])
+def test_sharded_engine_on_the_card_equals_local(dev, layout, shards):
+    """The sharded engine on one card (``shards`` panels, real copies
+    between them) answers as the local engine on the card, bit for bit,
+    every schedule running the two-panel launcher."""
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.distributed import sketch_dist as sd
+    edges, n = _graph(11, 4)
+    rng = np.random.default_rng(4)
+    pairs = edges[rng.choice(len(edges), 256, replace=False)]
+    sets = [rng.integers(0, n, rng.integers(1, 70)) for _ in range(64)]
+    local = engine.build(edges, n, HLLConfig(p=8), layout=layout)
+    eng = engine.build(edges, n, HLLConfig(p=8), layout=layout,
+                       backend="sharded", shards=shards)
+    assert [p.device.type for p in eng.shard_regs] == ["cuda"] * shards
+    assert torch.equal(eng.regs[:n], local.regs[:n])
+    assert np.array_equal(eng.degrees(), local.degrees())
+    want = local.neighborhood(3)
+    name = _build.kernel_name("hll_propagate_into", layout)
+    for schedule in ("ring", "ring_overlap", "allgather"):
+        before = _build.launch_counts()[name]
+        sd.reset_copied_bytes()
+        got = eng.neighborhood(3, schedule=schedule)
+        assert _build.launch_counts()[name] > before
+        if shards > 1:
+            moved = sd.copied_bytes()
+            assert moved["ppermute" if "ring" in schedule
+                         else "all_gather"] > 0
+        for a, b in zip(got, want):
+            assert np.array_equal(a, b)
+    eng.replicate(np.argsort(-np.bincount(edges.ravel()))[:16])
+    for schedule in ("ring_overlap", "allgather"):
+        eng._panel_set = None
+        got = eng.neighborhood(3, schedule=schedule)
+        assert np.array_equal(got[0], want[0])
+    assert np.array_equal(eng.union_size(sets), local.union_size(sets))
+    assert np.array_equal(eng.intersection_size(pairs, iters=10),
+                          local.intersection_size(pairs, iters=10))
+    a = eng.query_batch(degrees=True, vertex_sets=sets, pairs=pairs)
+    b = local.query_batch(degrees=True, vertex_sets=sets, pairs=pairs)
+    assert all(np.array_equal(a[k], b[k]) for k in b)
+    for mode in ("edge", "vertex"):
+        tot, vals, _ = eng.triangle_heavy_hitters(10, mode=mode, iters=10)
+        w_tot, w_vals, _ = local.triangle_heavy_hitters(10, mode=mode,
+                                                        iters=10)
+        assert abs(tot - w_tot) <= 1e-9 * abs(w_tot)
+        assert np.allclose(vals, w_vals, rtol=1e-9)

@@ -594,11 +594,16 @@ def test_sketch_serve_impl_flag(capsys):
 
 
 def test_sketch_serve_refuses_a_sharded_request(capsys):
-    """The port has only the local backend: the JAX launcher's sharding
-    flags are not accepted, so a sharded request fails before any work."""
-    for argv in (["--smoke", "--device", "cpu", "--backend", "sharded"],
-                 ["--smoke", "--device", "cpu", "--shards", "2"]):
+    """A sharding request the launcher cannot honour fails before any work,
+    as the JAX launcher's flags do: ``--shards`` without ``--backend
+    sharded``, and a backend that does not exist. (``--backend sharded``
+    itself is served: ``tests/test_torch_sharded.py``.)"""
+    for argv, msg in (
+            (["--smoke", "--device", "cpu", "--shards", "2"],
+             "--shards only applies to --backend sharded"),
+            (["--smoke", "--device", "cpu", "--backend", "mesh"],
+             "invalid choice")):
         with pytest.raises(SystemExit) as exc:
             sketch_serve.main(argv)
         assert exc.value.code == 2
-        assert "unrecognized arguments" in capsys.readouterr().err
+        assert msg in capsys.readouterr().err
