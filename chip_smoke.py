@@ -50,7 +50,10 @@ Phases, one line each:
    self-index pairs that a skip of ``src == dst`` would drop), the
    all-gather merge (every edge into shard 0 over all n_pad rows) and
    the replica pre-pass (a 1,024-row panel), each equal bit for bit and
-   timed;
+   timed, with the run length the wrapper chose, the gather floor (one
+   source row read an edge) beside the bound and, on the byte layout,
+   the library yardstick ``index_reduce_(0, dst, rows, "amax")`` on the
+   source rows gathered beforehand;
 5. main path, with launch counters zeroed just before: ``engine.build``
    (``hll_accumulate`` launched once per ``INGEST_BLOCK`` chunk, 16
    times at scale 22), ``degrees`` (mean relative error against exact
@@ -689,10 +692,14 @@ def routing_timing(torch, np, edges):
 def _check_into(torch, name, out0, src_panel, src, dst, layout, reps):
     """The two-panel launcher on ``(out0, src_panel)`` over one dst-sorted
     group: fail unless it equals its plain version bit for bit. Returns
-    (kernel ms, plain ms, bytes bound ms, the plain result): the wrapper's
-    call on a fresh copy of ``out0`` (CUDA events); the bound reads each
-    distinct source and destination row once, writes each destination
-    row once, 8 bytes an edge."""
+    (kernel ms, plain ms, bytes bound ms, gather floor ms, library ms, the
+    plain result): the wrapper's call on a fresh copy of ``out0`` (CUDA
+    events); the bound reads each distinct source and destination row
+    once, writes each destination row once, 8 bytes an edge; the gather
+    floor reads one source row an edge. The library yardstick (byte layout
+    only: no PyTorch call merges nibbles) is ``index_reduce_(0, dst, rows,
+    "amax")`` on the source rows gathered beforehand (untimed), which must
+    give the same panel; the port never calls it."""
     from repro_torch.kernels import hll_propagate
 
     got = hll_propagate.hll_propagate_into(out0.clone(), src_panel, src, dst,
@@ -702,17 +709,37 @@ def _check_into(torch, name, out0, src_panel, src, dst, layout, reps):
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         fail(f"{name} differs from its plain version")
+    del got
     ms = cuda_ms(torch, lambda o: hll_propagate.hll_propagate_into(
         o, src_panel, src, dst, layout=layout, check_order=False), reps,
         setup=lambda: (out0.clone(),))
     plain_ms = cuda_ms(torch, lambda o: hll_propagate.plain_into(
         o, src_panel, src, dst, layout=layout), 1,
         setup=lambda: (out0.clone(),))
+    lib_ms = None
+    if layout == "byte":
+        rows, index = src_panel[src.long()], dst.long()
+        lib = out0.clone().index_reduce_(0, index, rows, "amax")
+        if not torch.equal(lib, want):
+            fail(f"{name}: the index_reduce_ yardstick differs from the "
+                 f"plain version")
+        del lib
+        lib_ms = cuda_ms(torch, lambda o: o.index_reduce_(0, index, rows,
+                                                          "amax"), reps,
+                         setup=lambda: (out0.clone(),))
+        del rows, index
     w = out0.shape[1]
     rows_src = torch.unique(src).numel()
     rows_dst = torch.unique(dst).numel()
     bnd = bound_ms(rows_src * w + 2 * rows_dst * w + 8 * src.numel())
-    return ms, plain_ms, bnd, want
+    return ms, plain_ms, bnd, bound_ms(src.numel() * w), lib_ms, want
+
+
+def _into_line(name, what, ms, plain_ms, bnd, floor, lib_ms) -> str:
+    lib = "null" if lib_ms is None else f"{lib_ms:.4f} ms (index_reduce_)"
+    return (f"kernel vs plain: {name}: {what}: equal; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms (bytes), gather "
+            f"floor {floor:.4f} ms, library {lib}")
 
 
 def compare_propagate_into(torch, np, regs, src, dst, layout, report):
@@ -729,11 +756,15 @@ def compare_propagate_into(torch, np, regs, src, dst, layout, report):
       panel (a copy of all n_pad rows, V_src = SHARDS * V_out);
     * the replica pre-pass: the edges into shard 0 whose source is one of
       the 1,024 highest in-degree vertices, over a panel of those rows.
+
+    Each shape's line gives the run length the wrapper chose
+    (``hll_propagate.run_edges``) and the gather floor beside the bound.
     """
     from repro_torch.kernels import hll_propagate
 
     v_loc = regs.shape[0] // SHARDS
     name = "hll_propagate_into" + ("_packed" if layout == "packed" else "")
+    sms = torch.cuda.get_device_properties(regs.device).multi_processor_count
     out0 = regs[:v_loc].clone()
 
     keep = (dst < v_loc) & (src >= v_loc) & (src < 2 * v_loc)
@@ -744,29 +775,31 @@ def compare_propagate_into(torch, np, regs, src, dst, layout, report):
     s_all, d_all = hll_propagate.sort_routing(torch.cat([s_blk, x]),
                                               torch.cat([d_blk, x]))
     block = regs[v_loc:2 * v_loc].clone()
-    ms, plain_ms, bnd, want = _check_into(torch, name, out0, block, s_all,
-                                          d_all, layout, 10)
+    ms, plain_ms, bnd, floor, lib_ms, want = _check_into(
+        torch, name, out0, block, s_all, d_all, layout, 10)
     without = hll_propagate.plain_into(out0.clone(), block, s_blk, d_blk,
                                        layout=layout)
     if torch.equal(want, without):
         fail(f"{name}: the self-index pairs changed nothing; the check "
              f"cannot see a skip")
-    report(name, 0, ms, plain_ms, bnd, None,
+    report(name, 0, ms, plain_ms, bnd, lib_ms,
            f"ring step of {SHARDS} shards: {s_all.numel()} edges "
            f"({int(keep.sum())} of block 1 into shard 0, {k} self-index "
-           f"pairs), {v_loc} + {v_loc} rows; equal, and a skip of src == dst "
-           f"would differ")
+           f"pairs), {v_loc} + {v_loc} rows, runs of "
+           f"{hll_propagate.run_edges(s_all.numel(), sms)} edges; gather "
+           f"floor {floor:.4f} ms; equal, and a skip of src == dst would "
+           f"differ")
     del block, want, without, s_all, d_all, s_blk, d_blk, keep
 
     into0 = dst < v_loc  # the whole routing is dst-sorted: so is the group
     s_ag, d_ag = src[into0], dst[into0]
     full = regs.clone()
-    ms, plain_ms, bnd, _ = _check_into(torch, name, out0, full, s_ag, d_ag,
-                                       layout, 5)
-    log(f"kernel vs plain: {name}: all-gather merge of shard 0: "
-        f"{s_ag.numel()} edges, {full.shape[0]} source rows into {v_loc}: "
-        f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bnd:.4f} ms (bytes)")
+    ms, plain_ms, bnd, floor, lib_ms, _ = _check_into(
+        torch, name, out0, full, s_ag, d_ag, layout, 5)
+    log(_into_line(name, f"all-gather merge of shard 0: {s_ag.numel()} "
+                   f"edges, {full.shape[0]} source rows into {v_loc}, runs "
+                   f"of {hll_propagate.run_edges(s_ag.numel(), sms)} edges",
+                   ms, plain_ms, bnd, floor, lib_ms))
     del full
 
     deg = torch.bincount(src.to(torch.int64), minlength=regs.shape[0])
@@ -774,12 +807,12 @@ def compare_propagate_into(torch, np, regs, src, dst, layout, report):
     hit = torch.isin(s_ag.to(torch.int64), hot)
     slot = torch.searchsorted(hot, s_ag[hit].to(torch.int64)).to(torch.int32)
     rep = regs[hot].clone()
-    ms, plain_ms, bnd, _ = _check_into(torch, name, out0, rep, slot,
-                                       d_ag[hit], layout, 10)
-    log(f"kernel vs plain: {name}: replica pre-pass of shard 0: "
-        f"{slot.numel()} edges, {rep.shape[0]} replica rows into {v_loc}: "
-        f"equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bnd:.4f} ms (bytes)")
+    ms, plain_ms, bnd, floor, lib_ms, _ = _check_into(
+        torch, name, out0, rep, slot, d_ag[hit], layout, 10)
+    log(_into_line(name, f"replica pre-pass of shard 0: {slot.numel()} "
+                   f"edges, {rep.shape[0]} replica rows into {v_loc}, runs "
+                   f"of {hll_propagate.run_edges(slot.numel(), sms)} edges",
+                   ms, plain_ms, bnd, floor, lib_ms))
 
 
 def compare_hip_delta(torch, np, prev, cur, report):

@@ -1,26 +1,51 @@
 #!/usr/bin/env python3
-"""Time variants of the propagate kernel's design constants on one card.
+"""Time variants of the propagate kernels' design constants on one card.
 
-    python3 scripts/sweep_propagate.py EDGES_NPY
+    python3 scripts/sweep_propagate.py EDGES_NPY [TREE ...]
 
 Run it from a checkout's root. ``csrc/hll_propagate.cu`` holds its design
-choices as constants: the edge-run length ``kRunEdges``, the batch of
-source rows a lane loads before it folds them ``kBatch`` and the block
-size ``kThreads``.
+choices as constants: for the one-panel pass the edge-run length
+``kRunEdges``, the batch ``kBatch`` and the block size ``kThreads``; for
+the two-panel merge (``hll_propagate_into``) the block size
+``kIntoThreads``, the blocks per SM its register budget must allow on
+each layout (``kIntoMinBlocksByte``, ``kIntoMinBlocksPacked``), the
+registers of source rows a lane holds ``kIntoRowRegs`` and the most rows
+a lane has in flight ``kIntoMaxBatch``. The
+two-panel run length is an argument of its launcher, so every variant is
+timed at each of ``RUNS``.
+
 This script compiles the source once per entry of ``VARIANTS`` (the
 constants replaced in a copy under ``build/propagate_sweep/``, each copy
-built by its own ``nvcc``, all started together; ``nvcc``'s register and
-spill report kept beside each library), then times each variant's byte
-and packed launchers on the main path's shapes: the scale-22 graph (RMAT,
-edge factor 16, seed 0, cached at ``EDGES_NPY`` by the first run, as
-``scripts/time_main_path.py`` caches it), its panel built with
-``HLLConfig(p=8)``, and the engine's routing (``directed_routing``).
-Each variant's panel must equal the library kernel's bit for bit. Times
-are CUDA-event medians over ``REPS`` launches of the launcher alone (no
-clone, no order check).
+built by its own ``nvcc``, all started together) and, for each ``TREE``
+(another checkout or an unpacked ``git archive``, e.g. the parent commit's
+``src/repro_torch/csrc`` under ``build/parent``), that tree's source, run
+as ``tree:<its directory's name>``: a design that the source no longer
+holds is timed from the tree that does. It prints each library's
+``nvcc -Xptxas -v`` register, shared-memory and spill lines, then times,
+as CUDA-event medians over ``REPS`` launches of the launcher alone
+(``out`` restored between launches, outside the events):
 
-Prints the card's name and power limit, then one JSON line. Exits
-non-zero without a CUDA device.
+* the one-panel launchers (rows 3/3p) on the main path's routing: the
+  scale-22 graph (RMAT, edge factor 16, seed 0, cached at ``EDGES_NPY``
+  by the first run, as ``scripts/time_main_path.py`` caches it), its
+  panel built with ``HLLConfig(p=8)`` and the engine's routing;
+* the two-panel launchers at the shapes of ``chip_smoke.py`` phase 4,
+  shard 0 of 4: ``ring`` (block 1 into shard 0 plus 4,096 self-index
+  pairs), ``allgather`` (every edge into shard 0 over all rows),
+  ``replica`` (the edges from the 1,024 highest in-degree sources over a
+  1,024-row panel), and the control ``ring_l2``: the ring step's edges
+  with each source index taken modulo ``L2_ROWS``, so the same segments
+  read a source block that fits in L2.
+
+Every variant's output must equal the plain version (or, for the
+one-panel pass, the library kernel) bit for bit. Each shape's line gives
+its edges, its gather floor (one source row read per edge over
+3.35 TB/s) and its bytes bound (each distinct source and destination row
+read once, each destination row written once, 8 bytes an edge).
+
+Prints the card's name and power limit, then one JSON line; the full
+results also go to ``build/propagate_sweep/results.json``. Exits non-zero
+without a CUDA device.
 """
 from __future__ import annotations
 
@@ -33,18 +58,23 @@ import statistics
 import subprocess
 import sys
 
-REPS = 5
+REPS = 10
 SCALE, EDGE_FACTOR, SEED, P = 22, 16, 0, 8
+SHARDS, SELF_PAIRS, REPLICAS, L2_ROWS = 4, 4096, 1024, 65536
+HBM_BYTES_PER_S = 3.35e12
+RUNS = (1024, 512, 256, 128, 64, 32)
 #: name -> {constant: value} replaced in the source; {} is the source as is
 VARIANTS = {
     "as_is": {},
-    "run512": {"kRunEdges": "512"},
-    "run2048": {"kRunEdges": "2048"},
-    "batch4": {"kBatch": "4"},
-    "batch6": {"kBatch": "6"},
-    "batch12": {"kBatch": "12"},
-    "threads128": {"kThreads": "128"},
-    "threads512": {"kThreads": "512"},
+    "no_register_cap": {"kIntoMinBlocksByte": "1",
+                        "kIntoMinBlocksPacked": "1"},
+    "regs64": {"kIntoMinBlocksByte": "4", "kIntoMinBlocksPacked": "4",
+               "kIntoRowRegs": "16", "kIntoMaxBatch": "8"},
+    "byte_minblocks6": {"kIntoMinBlocksByte": "6"},
+    "packed_minblocks8": {"kIntoMinBlocksPacked": "8"},
+    "packed_batch8": {"kIntoMaxBatch": "8", "kIntoMinBlocksPacked": "4"},
+    "threads128": {"kIntoThreads": "128", "kIntoMinBlocksByte": "16",
+                   "kIntoMinBlocksPacked": "12"},
 }
 
 
@@ -58,106 +88,232 @@ def variant_source(text: str, consts: dict[str, str]) -> str:
     return text
 
 
-def build_variants(root: str) -> dict[str, ctypes.CDLL]:
-    """One shared library per variant, all compiled together
-    (``_build.compile_library``; each report kept beside its library)."""
+def ptxas_lines(log: str) -> list[str]:
+    """``-Xptxas -v``'s register, shared-memory and spill lines of the
+    propagate kernels, each after its kernel's name."""
+    keep, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\w+)'?", line)
+        if m:
+            name = m.group(1)
+            continue
+        if name and "propagate" in name and (
+                "registers" in line or "spill" in line):
+            m = re.search(r"propagate_(into_)?kernelILb([01])E(Lb([01])E)?"
+                          r"Li(\d)E", name)
+            kind = ("into" if m and (m.group(1) or m.group(4) == "1")
+                    else "one-panel")
+            what = (f"{kind} {'packed' if m.group(2) == '1' else 'byte'} "
+                    f"{m.group(5)}-word lanes" if m else name)
+            keep.append(f"{what}: {line.strip()}")
+    return keep
+
+
+def build_variants(root: str, trees: list[str]):
+    """{name: (library, takes a run length)}, all compiled together
+    (``_build.compile_library``), and {name: ptxas lines}."""
     from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
     from repro_torch.kernels import _build
     csrc = Path(root, "src", "repro_torch", "csrc")
-    text = (csrc / "hll_propagate.cu").read_text()
     out = Path(root, "build", "propagate_sweep")
     shutil.rmtree(out, ignore_errors=True)
     out.mkdir(parents=True)
     shutil.copy(csrc / "common.cuh", out)
-    libs = {}
+    text = (csrc / "hll_propagate.cu").read_text()
+    jobs = {}
     for name, consts in VARIANTS.items():
         src = out / f"hll_propagate_{name}.cu"
         src.write_text(variant_source(text, consts))
-        libs[name] = (src, out / f"libprop_{name}.so")
-    with ThreadPoolExecutor(len(libs)) as pool:
-        logs = dict(zip(libs, pool.map(
+        jobs[name] = (src, out / f"libprop_{name}.so")
+    for tree in trees:
+        name = f"tree:{Path(tree).resolve().name}"
+        tree_dir = out / name.replace(":", "_")
+        tree_dir.mkdir()
+        tree_csrc = Path(tree, "src", "repro_torch", "csrc")
+        shutil.copy(tree_csrc / "common.cuh", tree_dir)
+        shutil.copy(tree_csrc / "hll_propagate.cu", tree_dir)
+        jobs[name] = (tree_dir / "hll_propagate.cu",
+                      out / f"libprop_{name.replace(':', '_')}.so")
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        logs = dict(zip(jobs, pool.map(
             lambda sl: _build.compile_library([sl[0]], sl[1]),
-            libs.values())))
-    for name, (src, path) in libs.items():
+            jobs.values())))
+    libs, reports = {}, {}
+    for name, (src, path) in jobs.items():
         path.with_suffix(".log").write_text(logs[name])
+        reports[name] = ptxas_lines(logs[name])
+        takes_run = "run_edges" in src.read_text()
         lib = ctypes.CDLL(str(path))
-        for kernel in ("hll_propagate", "hll_propagate_packed"):
+        for kernel in ("hll_propagate", "hll_propagate_packed",
+                       "hll_propagate_into", "hll_propagate_into_packed"):
             fn = getattr(lib, kernel)
-            fn.argtypes = list(_build.KERNELS[kernel])
+            types = list(_build.KERNELS[kernel])
+            if "into" in kernel and not takes_run:
+                types.pop(-2)  # an older launcher has no run length
+            fn.argtypes = types
             fn.restype = ctypes.c_int
-        libs[name] = lib
-    return libs
+        libs[name] = (lib, takes_run)
+    return libs, reports
 
 
-def main(edges_path: str) -> int:
+def launcher_ms(torch, call, out, out0) -> float:
+    """CUDA-event median of ``call()`` over REPS launches, ``out`` set
+    back to ``out0`` before each (untimed)."""
+    pairs = []
+    for _ in range(REPS + 1):
+        out.copy_(out0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        err = call()
+        end.record()
+        if err != 0:
+            raise SystemExit(f"sweep_propagate: cudaError {err}")
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return statistics.median(s.elapsed_time(e) for s, e in pairs[1:])
+
+
+def into_shapes(torch, np, regs, src, dst):
+    """{shape: (out0, src_panel, src, dst)}: chip_smoke.py phase 4's three
+    shapes of shard 0 of SHARDS, and the ring step over an L2-sized
+    source block."""
+    from repro_torch.kernels import hll_propagate
+    v_loc = regs.shape[0] // SHARDS
+    out0 = regs[:v_loc].clone()
+    keep = (dst < v_loc) & (src >= v_loc) & (src < 2 * v_loc)
+    x = torch.from_numpy(np.random.default_rng(SEED + 7).choice(
+        v_loc, SELF_PAIRS, replace=False).astype(np.int32)).to(regs.device)
+    s_ring, d_ring = hll_propagate.sort_routing(
+        torch.cat([src[keep] - v_loc, x]), torch.cat([dst[keep], x]))
+    block = regs[v_loc:2 * v_loc].clone()
+    into0 = dst < v_loc
+    s_ag, d_ag = src[into0], dst[into0]
+    deg = torch.bincount(src.to(torch.int64), minlength=regs.shape[0])
+    hot = torch.topk(deg, REPLICAS).indices.sort().values
+    hit = torch.isin(s_ag.to(torch.int64), hot)
+    slot = torch.searchsorted(hot, s_ag[hit].to(torch.int64)).to(torch.int32)
+    return {
+        "ring": (out0, block, s_ring, d_ring),
+        "allgather": (out0, regs, s_ag, d_ag),
+        "replica": (out0, regs[hot].clone(), slot, d_ag[hit].contiguous()),
+        "ring_l2": (out0, block[:L2_ROWS].clone(),
+                    (s_ring % L2_ROWS).contiguous(), d_ring),
+    }
+
+
+def shape_line(torch, name, out0, panel, s, d) -> dict:
+    w = out0.shape[1]
+    e = s.numel()
+    info = {"edges": e, "src_rows": panel.shape[0], "out_rows": out0.shape[0],
+            "row_bytes": w,
+            "gather_floor_ms": e * w / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": (torch.unique(s).numel() * w
+                         + 2 * torch.unique(d).numel() * w + 8 * e)
+            / HBM_BYTES_PER_S * 1e3}
+    print(f"shape {name}: {e} edges, {panel.shape[0]} source rows into "
+          f"{out0.shape[0]}, {w}-byte rows; gather floor "
+          f"{info['gather_floor_ms']:.4f} ms, bound {info['bound_ms']:.4f} "
+          f"ms (bytes)", flush=True)
+    return info
+
+
+def main(edges_path: str, trees: list[str]) -> int:
     root = os.getcwd()
     sys.path.insert(0, os.path.join(root, "src"))
     import numpy as np
     import torch
     if not torch.cuda.is_available():
-        print("sweep_propagate: no CUDA device available",
-              file=sys.stderr)
+        print("sweep_propagate: no CUDA device available", file=sys.stderr)
         return 2
     from repro_torch import engine
     from repro_torch.core.hll import HLLConfig
-    from repro_torch.kernels.inputs import directed_routing
     from repro_torch.graph import generators
     from repro_torch.kernels import _build, hll_propagate
+    from repro_torch.kernels.inputs import directed_routing
 
-    if not os.path.exists(edges_path):
-        np.save(edges_path, generators.rmat(SCALE, EDGE_FACTOR, seed=SEED))
-    edges = np.load(edges_path)
-    n = 1 << SCALE
-    libs = build_variants(root)
-    src, dst = directed_routing(edges, torch.device("cuda"))
-    stream = torch.cuda.current_stream().cuda_stream
-    results = {}
-    for layout in ("byte", "packed"):
-        regs = engine.build(edges, n, HLLConfig(p=P), layout=layout,
-                            device="cuda").regs
-        want = hll_propagate.hll_propagate(regs, src, dst, layout=layout)
-        name = _build.kernel_name("hll_propagate", layout)
-        v, r = regs.shape[0], 1 << P
-        for run, lib in libs.items():
-            out = regs.clone()
-            fn = getattr(lib, name)
-            times = []
-            for _ in range(REPS + 1):
-                out.copy_(regs)
-                start = torch.cuda.Event(enable_timing=True)
-                end = torch.cuda.Event(enable_timing=True)
-                start.record()
-                err = fn(regs.data_ptr(), out.data_ptr(), src.data_ptr(),
-                         dst.data_ptr(), src.numel(), v, r, stream)
-                end.record()
-                if err != 0:
-                    raise SystemExit(f"{name} variant {run}: cudaError "
-                                     f"{err}")
-                times.append((start, end))
-            torch.cuda.synchronize()
-            if not torch.equal(out, want):
-                raise SystemExit(f"{name} variant {run} differs from the "
-                                 f"library kernel")
-            ms = [s.elapsed_time(e) for s, e in times[1:]]
-            results[f"{layout}/{run}"] = {"median_ms": statistics.median(ms),
-                                          "all_ms": ms}
-            print(f"{name} variant {run}: median "
-                  f"{statistics.median(ms):.4f} ms over {REPS}", flush=True)
-        del regs, want
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    libs, reports = build_variants(root, trees)
+    for name, lines in reports.items():
+        for line in lines:
+            print(f"ptxas {name}: {line}")
+    if not os.path.exists(edges_path):
+        os.makedirs(os.path.dirname(os.path.abspath(edges_path)),
+                    exist_ok=True)
+        np.save(edges_path, generators.rmat(SCALE, EDGE_FACTOR, seed=SEED))
+    edges = np.load(edges_path)
+    n = 1 << SCALE
+    src, dst = directed_routing(edges, torch.device("cuda"))
+    stream = torch.cuda.current_stream().cuda_stream
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    results, shapes = {}, {}
+    for layout in ("byte", "packed"):
+        regs = engine.build(edges, n, HLLConfig(p=P), layout=layout,
+                            device="cuda").regs
+        r = 1 << P
+        # rows 3/3p, the drift control: the one-panel launchers
+        name = _build.kernel_name("hll_propagate", layout)
+        want = hll_propagate.hll_propagate(regs, src, dst, layout=layout)
+        out = regs.clone()
+        for lib_name in ["as_is"] + [k for k in libs if k.startswith("tree:")]:
+            fn = getattr(libs[lib_name][0], name)
+            ms = launcher_ms(torch, lambda: fn(
+                regs.data_ptr(), out.data_ptr(), src.data_ptr(),
+                dst.data_ptr(), src.numel(), regs.shape[0], r, stream),
+                out, regs)
+            if not torch.equal(out, want):
+                raise SystemExit(f"{name} {lib_name} differs")
+            results[f"{layout}/one_panel/{lib_name}"] = ms
+            print(f"{name} {lib_name}: {ms:.4f} ms", flush=True)
+        del want, out
+        # the two-panel launchers
+        name = _build.kernel_name("hll_propagate_into", layout)
+        for shape, (out0, panel, s, d) in into_shapes(
+                torch, np, regs, src, dst).items():
+            shapes[f"{layout}/{shape}"] = shape_line(
+                torch, f"{layout}/{shape}", out0, panel, s, d)
+            shapes[f"{layout}/{shape}"]["chosen_run"] = \
+                hll_propagate.run_edges(s.numel(), n_sms)
+            want = hll_propagate.plain_into(out0.clone(), panel, s, d,
+                                            layout=layout)
+            out = out0.clone()
+            for lib_name, (lib, takes_run) in libs.items():
+                fn = getattr(lib, name)
+                for run in RUNS if takes_run else (None,):
+                    extra = (run,) if takes_run else ()
+                    ms = launcher_ms(torch, lambda: fn(
+                        panel.data_ptr(), out.data_ptr(), s.data_ptr(),
+                        d.data_ptr(), s.numel(), panel.shape[0],
+                        out0.shape[0], r, *extra, stream), out, out0)
+                    if not torch.equal(out, want):
+                        raise SystemExit(f"{name} {lib_name} run {run} "
+                                         f"differs from its plain version "
+                                         f"at {shape}")
+                    key = f"{layout}/{shape}/{lib_name}/{run}"
+                    results[key] = ms
+                    print(f"{key}: {ms:.4f} ms", flush=True)
+            del want, out
+        del regs
+        torch.cuda.empty_cache()
+    doc = {"card": card, "sms": n_sms, "reps": REPS, "shapes": shapes,
+           "ptxas": reports, "results": results}
+    with open(os.path.join(root, "build", "propagate_sweep", "results.json"),
+              "w") as f:
+        json.dump(doc, f, indent=1)
     print(card)
-    print(json.dumps({"card": card, "edges": int(src.numel()),
-                      "results": results}))
+    print(json.dumps({"card": card, "shapes": shapes, "results": results}))
     return 0
 
 
 if __name__ == "__main__":
-    if len(sys.argv) != 2:
+    if len(sys.argv) < 2:
         print(__doc__, file=sys.stderr)
         sys.exit(2)
-    sys.exit(main(sys.argv[1]))
+    sys.exit(main(sys.argv[1], sys.argv[2:]))

@@ -33,7 +33,7 @@ from repro_torch.core import hll, intersection
 from repro_torch.core.hll import HLLConfig
 from repro_torch.kernels import ops
 from repro_torch.kernels.inputs import (directed_block, directed_routing,
-                                        resolve_device)
+                                        pad_vertices, resolve_device)
 
 __all__ = ["DegreeSketch", "accumulate", "neighborhood_pass",
            "neighborhood_estimates", "edge_triangle_estimates",
@@ -43,11 +43,6 @@ __all__ = ["DegreeSketch", "accumulate", "neighborhood_pass",
 #: edges per MLE block: at p=8 a block's Eq. 19 histograms take 304 MB and
 #: the Newton step's float32[block, q+2] temporaries about 61 MB each
 EDGE_BLOCK = 1 << 18
-
-
-def pad_vertices(n: int, multiple: int) -> int:
-    """Round ``n`` up to the next multiple (register-table row padding)."""
-    return ((n + multiple - 1) // multiple) * multiple
 
 
 @dataclass(frozen=True)

@@ -15,12 +15,14 @@ from repro_torch.core import degreesketch as dsk
 from repro_torch.core import hll as hll_mod
 from repro_torch.core import intersection
 
-__all__ = ["HLLFamily", "ADSFamily", "HLL", "ADS"]
+__all__ = ["SketchFamily", "HLLFamily", "ADSFamily", "HLL", "ADS"]
 
 
-class _Family:
-    """What both families share: config (de)serialization for checkpoint
-    manifests and the default config.
+class SketchFamily:
+    """The family protocol the engine stack programs against (the JAX
+    package's ``kernels.registry.SketchFamily``): what both families
+    share, config (de)serialization for checkpoint manifests and the
+    default config.
 
     Attributes every family defines:
       name: registry coordinate ("hll" | "ads").
@@ -52,7 +54,7 @@ class _Family:
         return self.config_cls(**d)
 
 
-class HLLFamily(_Family):
+class HLLFamily(SketchFamily):
     """HyperLogLog: the paper's cardinality-sketch instantiation.
 
     Both register layouts suit its semantics: the Flajolet/beta
@@ -95,7 +97,7 @@ class HLLFamily(_Family):
         raise ValueError(f"mode must be 'edge' or 'vertex', got {mode!r}")
 
 
-class ADSFamily(_Family):
+class ADSFamily(SketchFamily):
     """All-Distances Sketches with batch-HIP estimators (``core.ads``).
 
     The register geometry and merge semantics of HLL, so ADS tables ride

@@ -48,14 +48,38 @@
 // kernel for repro/kernels/packing.py `scatter_max_rows`, the plain jnp
 // merge step of the sharded schedules (a ring step's in-flight block, an
 // all-gathered panel, a replica pre-pass), which has no Pallas kernel.
-// out[dst[e]] = max(out[dst[e]], src_panel[src[e]]) in place, over the
-// same dst-sorted runs and segments. Three things differ, and the
-// template's kInto switches them: the base of a segment's store is
-// out[d] itself (read with a plain load: only this group writes it), not
+// out[dst[e]] = max(out[dst[e]], src_panel[src[e]]) in place, over
+// dst-sorted runs and segments as above, with three differences: the base
+// of a segment's store is out[d] itself (only this group writes it), not
 // a frozen copy; src indexes src_panel (n_src rows) and dst indexes out
 // (n_out rows), two different vertex sets, so src == dst is a real edge
-// and nothing is skipped; and src_panel must be another allocation than
-// out (the wrapper checks), so the read-only path may cache it.
+// and nothing is skipped; and src_panel is another allocation than out
+// (the wrapper checks), so the read-only path may cache it.
+//
+// What bounds it on the H100: latency, not bytes. The sharded schedules
+// hand it short routings (a ring step of 4 shards at scale 22 is 7.9M
+// edges, a replica pre-pass 3.6M), and the one-panel kernel's runs of
+// 1,024 edges left fewer runs than the card holds warps: each warp walked
+// its run one batch of dependent loads (index, then row) at a time. A
+// ring step whose source block fits in L2 ran no faster
+// (scripts/sweep_propagate.py, PERF.md), and more rows in flight per lane
+// lost whenever they cost registers: warps resident, and each warp's
+// chain of index, row and fold per batch, set the pace. Rows staged
+// through a cp.async ring in shared memory (no registers held, the base
+// copied with the segment's last row) ran 1.7-2.2x slower at every shape,
+// and as slow over an L2-sized source block: the shuffles, copy groups
+// and shared-memory read-back of each edge cost more than the latency
+// they hid.
+//
+// Design (hll_propagate_into_kernel):
+//   - the run length is an argument: the wrapper derives it from the edge
+//     count and the SM count (kernels/hll_propagate.py `run_edges`), so
+//     the grid holds several waves of runs;
+//   - the registers are capped by __launch_bounds__ (kIntoMinBlocks*: 32
+//     a lane on the byte layout, 40 packed) and a lane holds only
+//     kIntoMaxBatch source rows in flight, so an SM holds 64 (48) warps;
+//     the few spills go to L1;
+//   - packed rows are folded on split nibble planes.
 #include "common.cuh"
 
 namespace {
@@ -142,9 +166,8 @@ __device__ __forceinline__ Vec<kWords> load_out(const uint32_t* p) {
 
 // Folds the segment maximum `acc` of destination d into out[d] (this
 // lane's kWords words at `off`). `shared`: the segment crosses a run end.
-// The base is the frozen regs[d] (out starts as its copy), or with kInto
-// out[d] itself.
-template <bool kPacked, bool kInto, int kWords>
+// The base is the frozen regs[d] (out starts as its copy).
+template <bool kPacked, int kWords>
 __device__ __forceinline__ void flush(const uint32_t* __restrict__ regs,
                                       uint32_t* __restrict__ out, int64_t d,
                                       int64_t n_rows, int64_t row_words,
@@ -153,9 +176,7 @@ __device__ __forceinline__ void flush(const uint32_t* __restrict__ regs,
   if (d < 0 || d >= n_rows) return;
   uint32_t* o = out + d * row_words + off;
   if (!shared) {
-    const Vec<kWords> old =
-        kInto ? load_out<kWords>(o)
-              : load_vec<kWords>(regs + d * row_words + off);
+    const Vec<kWords> old = load_vec<kWords>(regs + d * row_words + off);
     Vec<kWords> merged = old;
     merge_vec<kPacked>(&merged, acc);
     bool grew = false;
@@ -180,16 +201,15 @@ __device__ __forceinline__ void flush(const uint32_t* __restrict__ regs,
 }
 
 // lanes: lanes per group (a power of two <= 32); chunks: row chunks of
-// lanes * kWords words. dst must be non-decreasing. regs has n_src rows
-// and out n_rows (the same panel shape unless kInto).
-template <bool kPacked, bool kInto, int kWords>
+// lanes * kWords words. dst must be non-decreasing.
+template <bool kPacked, int kWords>
 __global__ void __launch_bounds__(kThreads)
     hll_propagate_kernel(const uint32_t* __restrict__ regs,
                          uint32_t* __restrict__ out,
                          const int32_t* __restrict__ src,
                          const int32_t* __restrict__ dst, int64_t n_edges,
-                         int64_t n_src, int64_t n_rows, int64_t row_words,
-                         int lanes, int64_t chunks) {
+                         int64_t n_rows, int64_t row_words, int lanes,
+                         int64_t chunks) {
   const int lane = threadIdx.x & 31;
   const int groups_per_warp = 32 / lanes;
   const int64_t group =
@@ -222,7 +242,7 @@ __global__ void __launch_bounds__(kThreads)
           if (e + b < e1) {
             const int32_t s = src[e + b];
             ds[b] = dst[e + b];
-            if ((kInto || s != ds[b]) && s >= 0 && s < n_src)
+            if (s != ds[b] && s >= 0 && s < n_rows)
               rows[b] = load_vec<kWords>(
                   regs + static_cast<int64_t>(s) * row_words + off);
           }
@@ -231,42 +251,40 @@ __global__ void __launch_bounds__(kThreads)
         for (int b = 0; b < kBatch; ++b) {
           if (e + b >= e1) break;
           if (ds[b] != cur) {
-            flush<kPacked, kInto>(regs, out, cur, n_rows, row_words, off,
-                                  acc, open_lo && cur == d_first);
+            flush<kPacked>(regs, out, cur, n_rows, row_words, off, acc,
+                           open_lo && cur == d_first);
             cur = ds[b];
             acc = zero_vec<kWords>();
           }
           merge_vec<kPacked>(&acc, rows[b]);
         }
       }
-      flush<kPacked, kInto>(regs, out, cur, n_rows, row_words, off, acc,
-                            (open_lo && cur == d_first) ||
-                                (open_hi && cur == d_last));
+      flush<kPacked>(regs, out, cur, n_rows, row_words, off, acc,
+                     (open_lo && cur == d_first) ||
+                         (open_hi && cur == d_last));
     }
   }
 }
 
-template <bool kPacked, bool kInto, int kWords>
+template <bool kPacked, int kWords>
 void launch_words(const uint32_t* regs, uint32_t* out, const int32_t* src,
-                  const int32_t* dst, int64_t n_edges, int64_t n_src,
-                  int64_t n_rows, int64_t row_words, cudaStream_t stream) {
+                  const int32_t* dst, int64_t n_edges, int64_t n_rows,
+                  int64_t row_words, cudaStream_t stream) {
   const int64_t lanes64 = row_words / kWords < 32 ? row_words / kWords : 32;
   const int lanes = static_cast<int>(lanes64);
   const int64_t chunks = row_words / (lanes64 * kWords);
   const int64_t n_runs = (n_edges + kRunEdges - 1) / kRunEdges;
   // a run takes `lanes` threads
-  hll_propagate_kernel<kPacked, kInto, kWords>
+  hll_propagate_kernel<kPacked, kWords>
       <<<repro::grid_for(n_runs * lanes, kThreads), kThreads, 0, stream>>>(
-          regs, out, src, dst, n_edges, n_src, n_rows, row_words, lanes,
-          chunks);
+          regs, out, src, dst, n_edges, n_rows, row_words, lanes, chunks);
 }
 
-// width: bytes per row, a power of two >= 8. regs has n_src rows, out
-// n_rows.
-template <bool kPacked, bool kInto>
+// width: bytes per row, a power of two >= 8.
+template <bool kPacked>
 int launch(const uint8_t* regs, uint8_t* out, const int32_t* src,
-           const int32_t* dst, int64_t n_edges, int64_t n_src,
-           int64_t n_rows, int width, cudaStream_t stream) {
+           const int32_t* dst, int64_t n_edges, int64_t n_rows, int width,
+           cudaStream_t stream) {
   if (n_edges == 0) return 0;
   const auto* r = reinterpret_cast<const uint32_t*>(regs);
   auto* o = reinterpret_cast<uint32_t*>(out);
@@ -276,14 +294,240 @@ int launch(const uint8_t* regs, uint8_t* out, const int32_t* src,
   // 16-byte aligned)
   const int words = row_words >= 128 ? 4 : (row_words >= 64 ? 2 : 1);
   if (words == 4) {
-    launch_words<kPacked, kInto, 4>(r, o, src, dst, n_edges, n_src, n_rows,
-                                    row_words, stream);
+    launch_words<kPacked, 4>(r, o, src, dst, n_edges, n_rows, row_words,
+                             stream);
   } else if (words == 2) {
-    launch_words<kPacked, kInto, 2>(r, o, src, dst, n_edges, n_src, n_rows,
-                                    row_words, stream);
+    launch_words<kPacked, 2>(r, o, src, dst, n_edges, n_rows, row_words,
+                             stream);
   } else {
-    launch_words<kPacked, kInto, 1>(r, o, src, dst, n_edges, n_src, n_rows,
-                                    row_words, stream);
+    launch_words<kPacked, 1>(r, o, src, dst, n_edges, n_rows, row_words,
+                             stream);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The two-panel merge. Design constants, chosen by measurement on the H100
+// (scripts/sweep_propagate.py; PERF.md): the block size; the blocks per
+// SM that the register budget must allow on each layout; the registers of
+// source rows a lane holds (kIntoRowRegs / kWords rows in flight, at most
+// kIntoMaxBatch).
+constexpr int kIntoThreads = 256;
+constexpr int kIntoMinBlocksByte = 8;
+constexpr int kIntoMinBlocksPacked = 6;
+constexpr int kIntoRowRegs = 8;
+constexpr int kIntoMaxBatch = 4;
+
+// source rows a lane loads before it folds them
+template <int kWords>
+__host__ __device__ constexpr int into_batch() {
+  return kIntoRowRegs / kWords >= kIntoMaxBatch
+             ? kIntoMaxBatch
+             : (kIntoRowRegs / kWords > 1 ? kIntoRowRegs / kWords : 1);
+}
+
+// The running maximum of one segment's source rows, kWords words. The
+// packed layout keeps it as its two nibble planes (low and high nibbles,
+// each widened to a byte), so each folded word costs two masks, a shift
+// and two byte maxima rather than a whole nib_max4.
+template <bool kPacked, int kWords>
+struct Acc {
+  static constexpr bool kPlanes = kPacked;
+  uint32_t lo[kWords];
+  uint32_t hi[kPlanes ? kWords : 1];
+
+  __device__ __forceinline__ void clear() {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      lo[i] = 0u;
+      if constexpr (kPlanes) hi[i] = 0u;
+    }
+  }
+  __device__ __forceinline__ void fold(const Vec<kWords>& v) {
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      if constexpr (kPlanes) {
+        lo[i] = __vmaxu4(lo[i], v.w[i] & 0x0F0F0F0Fu);
+        hi[i] = __vmaxu4(hi[i], (v.w[i] >> 4) & 0x0F0F0F0Fu);
+      } else {
+        lo[i] = repro::reg_max<kPacked>(lo[i], v.w[i]);
+      }
+    }
+  }
+  __device__ __forceinline__ uint32_t word(int i) const {
+    if constexpr (kPlanes) return lo[i] | (hi[i] << 4);
+    return lo[i];
+  }
+};
+
+// Folds the segment maximum `acc` of destination d into out[d], this
+// lane's kWords words at `o`; `base` is a read of those words, made at
+// the segment's end. A segment wholly inside the run owns out[d], so
+// `base` is exact: one plain store of the maximum, skipped when nothing
+// grew. A segment that crosses a run end (`shared`) merges each word with
+// a compare-and-swap loop whose first guess is `base`: out only grows, so
+// a stale guess costs one more round, and a merge that changes nothing
+// against it changes nothing against the current word either.
+template <bool kPacked, int kWords>
+__device__ __forceinline__ void flush_into(uint32_t* o,
+                                           const Acc<kPacked, kWords>& acc,
+                                           const Vec<kWords>& base,
+                                           bool shared) {
+  if (!shared) {
+    Vec<kWords> merged;
+    bool grew = false;
+#pragma unroll
+    for (int i = 0; i < kWords; ++i) {
+      merged.w[i] = repro::reg_max<kPacked>(base.w[i], acc.word(i));
+      grew |= merged.w[i] != base.w[i];
+    }
+    if (grew) store_vec(o, merged);
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < kWords; ++i) {
+    const uint32_t v = acc.word(i);
+    if (v == 0u) continue;
+    uint32_t old = base.w[i];
+    for (;;) {
+      const uint32_t merged = repro::reg_max<kPacked>(old, v);
+      if (merged == old) break;
+      const uint32_t seen = atomicCAS(o + i, old, merged);
+      if (seen == old) break;
+      old = seen;
+    }
+  }
+}
+
+// out[dst[e]] max= src_panel[src[e]] over dst-sorted runs of run_edges
+// edges, one run per group of `lanes` lanes (kWords words each, `chunks`
+// row chunks). No edge is skipped: src and dst index different panels.
+// Inside a run, edges are counted in 32 bits (run_edges < 2^31).
+template <bool kPacked, int kWords>
+__global__ void __launch_bounds__(kIntoThreads, kPacked
+                                                    ? kIntoMinBlocksPacked
+                                                    : kIntoMinBlocksByte)
+    hll_propagate_into_kernel(const uint32_t* __restrict__ src_panel,
+                              uint32_t* __restrict__ out,
+                              const int32_t* __restrict__ src,
+                              const int32_t* __restrict__ dst,
+                              int64_t n_edges, int64_t n_src, int64_t n_out,
+                              int64_t row_words, int lanes, int64_t chunks,
+                              int64_t run_edges) {
+  constexpr int kB = into_batch<kWords>();
+  // a row id r is live when 0 <= r < n: one unsigned compare (ids are int32)
+  const uint32_t src_lim =
+      static_cast<uint32_t>(n_src < (int64_t{1} << 31) ? n_src
+                                                       : int64_t{1} << 31);
+  const uint32_t out_lim =
+      static_cast<uint32_t>(n_out < (int64_t{1} << 31) ? n_out
+                                                       : int64_t{1} << 31);
+  const int lane = threadIdx.x & 31;
+  const int groups_per_warp = 32 / lanes;
+  const int64_t group =
+      (static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x) / 32 *
+          groups_per_warp +
+      lane / lanes;
+  const int64_t n_groups =
+      static_cast<int64_t>(gridDim.x) * blockDim.x / 32 * groups_per_warp;
+  const int64_t n_runs = (n_edges + run_edges - 1) / run_edges;
+  const int64_t lane_off = static_cast<int64_t>(lane % lanes) * kWords;
+  for (int64_t run = group; run < n_runs; run += n_groups) {
+    const int64_t e0 = run * run_edges;
+    const int len = static_cast<int>(
+        e0 + run_edges < n_edges ? run_edges : n_edges - e0);
+    const int32_t* const src_r = src + e0;
+    const int32_t* const dst_r = dst + e0;
+    const int32_t d_first = dst_r[0];
+    const int32_t d_last = dst_r[len - 1];
+    // the first (last) segment continues into the previous (next) run
+    const bool open_lo = e0 > 0 && dst_r[-1] == d_first;
+    const bool open_hi = e0 + len < n_edges && dst_r[len] == d_last;
+    for (int64_t c = 0; c < chunks; ++c) {
+      uint32_t* const out_c = out + c * lanes * kWords + lane_off;
+      const uint32_t* const src_c = src_panel + c * lanes * kWords + lane_off;
+      auto row_of = [&](int32_t d) {
+        return out_c + static_cast<int64_t>(d) * row_words;
+      };
+      int32_t cur = d_first;
+      Acc<kPacked, kWords> acc;
+      acc.clear();
+      for (int i = 0; i < len; i += kB) {
+        Vec<kWords> rows[kB];
+        int32_t ds[kB];
+#pragma unroll
+        for (int b = 0; b < kB; ++b) {
+          rows[b] = zero_vec<kWords>();
+          ds[b] = -1;
+          if (i + b < len) {
+            const int32_t s = src_r[i + b];
+            ds[b] = dst_r[i + b];
+            if (static_cast<uint32_t>(s) < src_lim)
+              rows[b] = load_vec<kWords>(src_c +
+                                         static_cast<int64_t>(s) * row_words);
+          }
+        }
+#pragma unroll
+        for (int b = 0; b < kB; ++b) {
+          if (i + b >= len) break;
+          if (ds[b] != cur) {
+            if (static_cast<uint32_t>(cur) < out_lim)
+              flush_into<kPacked>(row_of(cur), acc,
+                                  load_out<kWords>(row_of(cur)),
+                                  open_lo && cur == d_first);
+            cur = ds[b];
+            acc.clear();
+          }
+          acc.fold(rows[b]);
+        }
+      }
+      if (static_cast<uint32_t>(cur) < out_lim)
+        flush_into<kPacked>(row_of(cur), acc, load_out<kWords>(row_of(cur)),
+                            (open_lo && cur == d_first) ||
+                                (open_hi && cur == d_last));
+    }
+  }
+}
+
+template <bool kPacked, int kWords>
+void launch_into_words(const uint32_t* src_panel, uint32_t* out,
+                       const int32_t* src, const int32_t* dst,
+                       int64_t n_edges, int64_t n_src, int64_t n_out,
+                       int64_t row_words, int64_t run_edges,
+                       cudaStream_t stream) {
+  const int64_t lanes64 = row_words / kWords < 32 ? row_words / kWords : 32;
+  const int lanes = static_cast<int>(lanes64);
+  const int64_t chunks = row_words / (lanes64 * kWords);
+  const int64_t n_runs = (n_edges + run_edges - 1) / run_edges;
+  hll_propagate_into_kernel<kPacked, kWords>
+      <<<repro::grid_for(n_runs * lanes, kIntoThreads), kIntoThreads, 0,
+         stream>>>(src_panel, out, src, dst, n_edges, n_src, n_out,
+                   row_words, lanes, chunks, run_edges);
+}
+
+// width: bytes per row, a power of two >= 8; run_edges >= 1.
+template <bool kPacked>
+int launch_into(const uint8_t* src_panel, uint8_t* out, const int32_t* src,
+                const int32_t* dst, int64_t n_edges, int64_t n_src,
+                int64_t n_out, int width, int64_t run_edges,
+                cudaStream_t stream) {
+  if (run_edges < 1 || run_edges >= (int64_t{1} << 31))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_edges == 0) return 0;
+  const auto* s = reinterpret_cast<const uint32_t*>(src_panel);
+  auto* o = reinterpret_cast<uint32_t*>(out);
+  const int64_t row_words = width / 4;
+  // one warp per row up to 512 bytes, as the one-panel kernel
+  const int words = row_words >= 128 ? 4 : (row_words >= 64 ? 2 : 1);
+  if (words == 4) {
+    launch_into_words<kPacked, 4>(s, o, src, dst, n_edges, n_src, n_out,
+                                  row_words, run_edges, stream);
+  } else if (words == 2) {
+    launch_into_words<kPacked, 2>(s, o, src, dst, n_edges, n_src, n_out,
+                                  row_words, run_edges, stream);
+  } else {
+    launch_into_words<kPacked, 1>(s, o, src, dst, n_edges, n_src, n_out,
+                                  row_words, run_edges, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -294,8 +538,7 @@ extern "C" int hll_propagate(const uint8_t* regs, uint8_t* out,
                              const int32_t* src, const int32_t* dst,
                              int64_t n_edges, int64_t n_rows, int r,
                              cudaStream_t stream) {
-  return launch<false, false>(regs, out, src, dst, n_edges, n_rows, n_rows, r,
-                              stream);
+  return launch<false>(regs, out, src, dst, n_edges, n_rows, r, stream);
 }
 
 // r: registers per row; the packed row is r / 2 bytes (r >= 16).
@@ -303,25 +546,27 @@ extern "C" int hll_propagate_packed(const uint8_t* regs, uint8_t* out,
                                     const int32_t* src, const int32_t* dst,
                                     int64_t n_edges, int64_t n_rows, int r,
                                     cudaStream_t stream) {
-  return launch<true, false>(regs, out, src, dst, n_edges, n_rows, n_rows,
-                             r >> 1, stream);
+  return launch<true>(regs, out, src, dst, n_edges, n_rows, r >> 1, stream);
 }
 
 // out (n_out rows) max= src_panel (n_src rows) over a dst-sorted routing,
-// in place.
+// in place, in runs of run_edges edges (kernels/hll_propagate.py
+// `run_edges` chooses it from the edge count and the card's SMs).
 extern "C" int hll_propagate_into(const uint8_t* src_panel, uint8_t* out,
                                   const int32_t* src, const int32_t* dst,
                                   int64_t n_edges, int64_t n_src,
-                                  int64_t n_out, int r, cudaStream_t stream) {
-  return launch<false, true>(src_panel, out, src, dst, n_edges, n_src, n_out,
-                             r, stream);
+                                  int64_t n_out, int r, int64_t run_edges,
+                                  cudaStream_t stream) {
+  return launch_into<false>(src_panel, out, src, dst, n_edges, n_src, n_out,
+                            r, run_edges, stream);
 }
 
 extern "C" int hll_propagate_into_packed(const uint8_t* src_panel,
                                          uint8_t* out, const int32_t* src,
                                          const int32_t* dst, int64_t n_edges,
                                          int64_t n_src, int64_t n_out, int r,
+                                         int64_t run_edges,
                                          cudaStream_t stream) {
-  return launch<true, true>(src_panel, out, src, dst, n_edges, n_src, n_out,
-                            r >> 1, stream);
+  return launch_into<true>(src_panel, out, src, dst, n_edges, n_src, n_out,
+                           r >> 1, run_edges, stream);
 }

@@ -1,10 +1,8 @@
 """Public sketch query API: open / build / load a ``SketchEngine`` on the card.
 
     from repro_torch import engine
-    from repro_torch.core.ads import ADSConfig
-    from repro_torch.core.hll import HLLConfig
 
-    eng = engine.build(edges, n, HLLConfig(p=8))   # on the card
+    eng = engine.build(edges, n)                   # hll, on the card
     deg = eng.degrees()
     loc, glob = eng.neighborhood(t_max=3)
     u = eng.union_size([ids_a, ids_b])              # batched |∪ N(x)|
@@ -12,7 +10,7 @@
     out = eng.query_batch(degrees=True, vertex_sets=sets, pairs=edge_pairs)
     total, vals, top = eng.triangle_heavy_hitters(100, mode="edge")
 
-    ads = engine.build(edges, n, ADSConfig(p=8), family="ads")
+    ads = engine.build(edges, n, family="ads")     # All-Distances Sketches
     hist, glob = ads.distance_histogram(6)         # HIP distance queries
     close = ads.closeness(6)
     eff = ads.effective_diameter(6, q=0.9)
@@ -25,14 +23,13 @@
     eng.ingest(block)                              # snap keeps its answers
     eng.replicate(hot_ids)                         # hot-vertex replica set
 
-    small = engine.build(edges, n, HLLConfig(p=8), layout="packed")
+    small = engine.build(edges, n, layout="packed")
     small.save(path)                               # half the register bytes
     as_byte = engine.load(path, layout="byte")     # exact unpack
 
-    plain = engine.build(edges, n, HLLConfig(p=8), impl="ref")  # no kernels
+    plain = engine.build(edges, n, impl="ref")    # no kernels
 
-    big = engine.build(edges, n, HLLConfig(p=8), backend="sharded",
-                       shards=4)                  # four shard panels
+    big = engine.build(edges, n, backend="sharded", shards=4)  # 4 panels
     loc, glob = big.neighborhood(3, schedule="allgather")
     big.save(path)
     two = engine.load(path, shards=2)              # elastic reshard
@@ -78,14 +75,14 @@ import numpy as np
 import torch
 
 from repro_torch.engine.base import (ENGINE_FORMAT, SketchEngine,
-                                     resolve_device)
+                                     UnsupportedQuery, resolve_device)
 from repro_torch.engine.local import LocalEngine
 from repro_torch.engine.sharded import ShardedEngine
 from repro_torch.kernels import packing, registry
 
-__all__ = ["SketchEngine", "LocalEngine", "ShardedEngine", "open", "build",
-           "load", "default_device", "default_impl", "default_layout",
-           "default_family"]
+__all__ = ["SketchEngine", "LocalEngine", "ShardedEngine",
+           "UnsupportedQuery", "open", "build", "load", "default_device",
+           "default_impl", "default_layout", "default_family"]
 
 _BACKENDS = ("local", "sharded")
 
@@ -156,8 +153,8 @@ def open(n: int, cfg=None, *, layout: str | None = None,
 
     Args:
       n: vertex count; ingesting ids >= n raises ``ValueError``.
-      cfg: sketch config; its type selects the family (``HLLConfig`` or
-        ``ADSConfig``). Default: the family's default config.
+      cfg: sketch config; its type selects the family
+        (``registry.family_of``). Default: the family's default config.
       layout: register layout, "byte" (one register a byte) or "packed"
         (two 4-bit registers a byte, saturating at 15; HLL only, an ADS
         config raises ``ValueError``); default :func:`default_layout`.

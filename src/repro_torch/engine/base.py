@@ -70,10 +70,9 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from repro_torch.core.degreesketch import pad_vertices
 from repro_torch.engine import plans
 from repro_torch.kernels import inputs, packing, registry
-from repro_torch.kernels.inputs import resolve_device
+from repro_torch.kernels.inputs import pad_vertices, resolve_device
 
 #: the ``format`` a checkpoint of an engine records (the JAX package's)
 ENGINE_FORMAT = "degreesketch-engine-v1"

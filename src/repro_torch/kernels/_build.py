@@ -54,8 +54,9 @@ KERNELS = {
     "hll_estimate_stats": (_P, _P, _I64, _I32, _P),
     # regs, out, src, dst, n_edges, n_rows, r, stream
     "hll_propagate": (_P, _P, _P, _P, _I64, _I64, _I32, _P),
-    # src_panel, out, src, dst, n_edges, n_src, n_out, r, stream
-    "hll_propagate_into": (_P, _P, _P, _P, _I64, _I64, _I64, _I32, _P),
+    # src_panel, out, src, dst, n_edges, n_src, n_out, r, run_edges, stream
+    "hll_propagate_into": (_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I64,
+                           _P),
     # regs, pa, pb, stats, sz, n_pairs, n_rows, r, q, stream
     "intersection_stats": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
     # regs, ids, mask, out, n_sets, n_rows, lanes, r, stream

@@ -24,16 +24,47 @@ no Pallas kernel), the merge step of the sharded schedules:
 ``src_panel`` and ``dst`` indexes ``out``, two panels of their own row
 counts. The base is ``out[d]`` and ``src == dst`` is a real edge (a
 ring step's block holds other vertices than the shard it merges into).
-:func:`plain_into` is its plain version.
+:func:`plain_into` is its plain version. The two-panel kernel cuts the
+routing into runs of :func:`run_edges` edges, one run per group of
+lanes; the wrapper derives the length from the edge count and the card's
+SM count, so that a short routing still fills the card.
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from repro_torch.kernels import _build, ref
 
-__all__ = ["dst_sorted", "hll_propagate", "hll_propagate_into", "plain",
-           "plain_into", "sort_routing"]
+__all__ = ["RUN_EDGES_MAX", "RUN_EDGES_MIN", "dst_sorted", "hll_propagate",
+           "hll_propagate_into", "plain", "plain_into", "run_edges",
+           "sort_routing"]
+
+#: the two-panel kernel's run lengths (edges a group walks): powers of two
+#: in this range. Longer runs lost at every shape measured on the H100,
+#: even with the grid full; shorter ones leave most segments crossing a
+#: run end, merged by compare-and-swap (scripts/sweep_propagate.py).
+RUN_EDGES_MIN, RUN_EDGES_MAX = 64, 256
+#: runs per SM the chooser aims at: four waves of the 64 warps an SM holds
+#: at once, so that every SM keeps source rows in flight to the end
+RUNS_PER_SM = 256
+
+
+def run_edges(n_edges: int, n_sms: int) -> int:
+    """The two-panel kernel's run length for ``n_edges`` edges on a card
+    of ``n_sms`` SMs: the longest power of two in ``[RUN_EDGES_MIN,
+    RUN_EDGES_MAX]`` that still cuts the routing into ``RUNS_PER_SM`` runs
+    per SM, or ``RUN_EDGES_MIN`` when none does."""
+    run = RUN_EDGES_MAX
+    while run > RUN_EDGES_MIN and run * n_sms * RUNS_PER_SM > n_edges:
+        run //= 2
+    return run
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def sort_routing(src: torch.Tensor, dst: torch.Tensor,
@@ -134,8 +165,10 @@ def hll_propagate_into(out: torch.Tensor, src_panel: torch.Tensor,
                          "with sort_routing)")
     if src.shape[0] == 0:
         return out
+    n = src.shape[0]
     _build.launch(_build.kernel_name("hll_propagate_into", layout),
                   out.device, src_panel.data_ptr(), out.data_ptr(),
-                  src.data_ptr(), dst.data_ptr(), src.shape[0], v_src, v_out,
-                  r, _build.stream_of(out))
+                  src.data_ptr(), dst.data_ptr(), n, v_src, v_out, r,
+                  run_edges(n, _sm_count(out.get_device())),
+                  _build.stream_of(out))
     return out

@@ -7,6 +7,7 @@ their registers agree bit for bit.
 
 * :func:`resolve_device`: the device an entry point runs on (the card
   unless the caller asks for the CPU; never the CPU by itself);
+* :func:`pad_vertices`: the row count of a register table;
 * :data:`INGEST_BLOCK`: undirected edges per accumulate launch;
 * :func:`directed_block`: an undirected chunk as accumulate rows/keys;
 * :func:`directed_routing`: an undirected edge list as a dst-sorted
@@ -19,8 +20,8 @@ import torch
 
 from repro_torch.kernels.hll_propagate import sort_routing
 
-__all__ = ["resolve_device", "INGEST_BLOCK", "directed_block",
-           "directed_routing", "ROUTING_SLICE"]
+__all__ = ["resolve_device", "pad_vertices", "INGEST_BLOCK",
+           "directed_block", "directed_routing", "ROUTING_SLICE"]
 
 #: undirected edges per accumulate launch; larger blocks are split. The
 #: JAX package's 2^15 serves XLA's static shape buckets; the CUDA kernel
@@ -44,6 +45,11 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"device must be cuda or cpu, got {dev}")
     return dev
+
+
+def pad_vertices(n: int, multiple: int) -> int:
+    """Round ``n`` up to the next multiple (register-table row padding)."""
+    return ((n + multiple - 1) // multiple) * multiple
 
 
 def _to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:

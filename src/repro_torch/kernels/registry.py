@@ -34,11 +34,19 @@ from __future__ import annotations
 import functools
 from dataclasses import dataclass
 
-from repro_torch.core.families import ADS, HLL
+from repro_torch.core.families import ADS, HLL, SketchFamily
+from repro_torch.kernels.packing import LAYOUTS
 
-__all__ = ["KernelSet", "resolve", "lookup", "impls", "family",
-           "family_of"]
+__all__ = ["OPS", "LAYOUTS", "KernelSet", "SketchFamily", "resolve",
+           "lookup", "impls", "family", "families", "family_of"]
 
+#: the ops a complete hll kernel set provides (the JAX package's
+#: module-level tuple; each family carries its own, ``SketchFamily.ops``)
+OPS = HLL.ops
+
+#: the families, fixed: their ops are branches of ``kernels.ops``, so a
+#: family added from outside could not bring its own kernels (the JAX
+#: package's ``register_family`` has no counterpart here)
 _FAMILIES = {fam.name: fam for fam in (HLL, ADS)}
 
 
@@ -49,6 +57,11 @@ def family(name: str):
         raise ValueError(f"unknown sketch family {name!r}; known families: "
                          f"{sorted(_FAMILIES)}")
     return fam
+
+
+def families() -> list[str]:
+    """Sorted names of the sketch families ("ads", "hll")."""
+    return sorted(_FAMILIES)
 
 
 def family_of(cfg):

@@ -1243,7 +1243,9 @@ def test_ref_impl_on_the_card_launches_nothing_and_equals_cuda(dev, layout):
 # empty routing (no launch).
 
 def _into_case(rng, case, v_src, v_out):
-    """(src, dst) numpy routing of ``case`` (unsorted)."""
+    """(src, dst) numpy routing of ``case`` (unsorted). The wrapper cuts
+    a routing into runs of ``hll_propagate.run_edges`` edges: the
+    shortest run on a card this size for every case here."""
     src = rng.integers(0, v_src, 3_000)
     dst = rng.integers(0, v_out, 3_000)
     if case == "self_index":  # every pair src == dst, over a whole run
@@ -1254,6 +1256,15 @@ def _into_case(rng, case, v_src, v_out):
         dst = np.concatenate([np.repeat(rng.choice(v_out, 3, replace=False),
                                         lens), dst[:500]])
         src = rng.integers(0, v_src, dst.shape[0])
+    elif case == "short":  # fewer edges than one wave of runs
+        src, dst = src[:97], dst[:97]
+    elif case == "hub_runs":  # one segment across a hundred short runs
+        dst = np.concatenate([dst[:400], np.full(
+            100 * hll_propagate.RUN_EDGES_MIN + 5, v_out // 2)])
+        src = rng.integers(0, v_src, dst.shape[0])
+    elif case == "replica":  # a 1,024-row source panel, skewed sources
+        src = np.minimum(rng.zipf(1.3, 20_000) - 1, v_src - 1)
+        dst = rng.integers(0, v_out, src.shape[0])
     elif case == "empty":
         src = dst = np.zeros(0, np.int64)
     return src, dst
@@ -1262,11 +1273,12 @@ def _into_case(rng, case, v_src, v_out):
 @pytest.mark.parametrize("layout", ["byte", "packed"])
 @pytest.mark.parametrize("p", [4, 8, 12, 16])
 @pytest.mark.parametrize("case", ["v_src_less", "v_src_more", "self_index",
-                                  "hub", "empty"])
+                                  "hub", "short", "hub_runs", "replica",
+                                  "empty"])
 def test_propagate_into_matches_plain(dev, layout, p, case):
     rng = np.random.default_rng(p * 11 + len(case))
-    v_src, v_out = {"v_src_less": (37, 301), "v_src_more": (301, 37)}.get(
-        case, (200, 200))
+    v_src, v_out = {"v_src_less": (37, 301), "v_src_more": (301, 37),
+                    "replica": (1_024, 3_000)}.get(case, (200, 200))
     make = ((lambda v: _packed_panel(rng, v, p, dev)) if layout == "packed"
             else (lambda v: _panel(rng, v, p, 40, dev)))
     src_panel, out = make(v_src), make(v_out)
@@ -1306,6 +1318,61 @@ def test_propagate_into_checks_its_panels(dev, layout):
     with pytest.raises(ValueError, match="registers"):
         hll_propagate.hll_propagate_into(out, make(16)[:, :8].contiguous(),
                                          src, dst.sort()[0], layout=layout)
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+@pytest.mark.parametrize("p", [4, 8, 16])
+@pytest.mark.parametrize("case", ["hub_runs", "replica"])
+@pytest.mark.parametrize("run", [1, 64, 128, 256])
+def test_propagate_into_launcher_at_each_run_length(dev, layout, p, case,
+                                                    run):
+    """The launcher called with the run lengths the sharded schedules
+    take (128 at a ring step, 256 at an all-gather merge, 64 at a replica
+    pre-pass) and a run of one edge, on routings whose segments cross
+    many run ends: equal to the plain version."""
+    rng = np.random.default_rng(p * 7 + run + len(case))
+    v_src, v_out = (1_024, 3_000) if case == "replica" else (200, 200)
+    make = ((lambda v: _packed_panel(rng, v, p, dev)) if layout == "packed"
+            else (lambda v: _panel(rng, v, p, 40, dev)))
+    src_panel, out = make(v_src), make(v_out)
+    out[rng.random(v_out) < 0.3] = 0
+    src_t, dst_t = _routing(*_into_case(rng, case, v_src, v_out), dev)
+    want = hll_propagate.plain_into(out.clone(), src_panel, src_t, dst_t,
+                                    layout=layout)
+    fn = getattr(_build.library(),
+                 _build.kernel_name("hll_propagate_into", layout))
+    assert fn(src_panel.data_ptr(), out.data_ptr(), src_t.data_ptr(),
+              dst_t.data_ptr(), src_t.numel(), v_src, v_out, 1 << p, run,
+              _build.stream_of(out)) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+@pytest.mark.parametrize("run", [0, -1, 1 << 31])
+def test_propagate_into_launcher_refuses_a_bad_run_length(dev, layout, run):
+    """The launcher returns an error for a run length outside [1, 2^31)
+    and launches nothing; a run of one edge is taken."""
+    rng = np.random.default_rng(9)
+    out, other = _panel(rng, 16, 6, 40, dev), _panel(rng, 16, 6, 40, dev)
+    src = torch.tensor([1, 2], dtype=torch.int32, device=dev)
+    dst = torch.tensor([1, 3], dtype=torch.int32, device=dev)
+    fn = getattr(_build.library(),
+                 _build.kernel_name("hll_propagate_into", layout))
+    r = 64  # registers a row: 64 bytes, or 32 packed
+    w = r // 2 if layout == "packed" else r
+    out, other = out[:, :w].contiguous(), other[:, :w].contiguous()
+    args = (other.data_ptr(), out.data_ptr(), src.data_ptr(),
+            dst.data_ptr(), 2, 16, 16, r)
+    stream = _build.stream_of(out)
+    before = out.clone()
+    assert fn(*args, run, stream) != 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, before)
+    assert fn(*args, 1, stream) == 0
+    want = hll_propagate.plain_into(before, other, src, dst, layout=layout)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("layout", ["byte", "packed"])
