@@ -123,6 +123,24 @@ Phases, one line each:
    propagate must not launch; every other launcher of the sharded path
    must. Peak memory printed per sub-phase (the peak statistic reset at
    each start), and the phase's maximum over them;
+5r. failover coordinator, after phase 5h, counters zeroed just before
+   and taken over the coordinator's run and the recovered engine's
+   queries only: ``runtime.coordinator.coordinator`` over the phase-3
+   graph in 16 blocks of 2^22 edges, 4 hosts, ``backend="sharded"``,
+   checkpoints every 8 blocks under ``build/``, the 1,024 highest-degree
+   vertices replicated, host 2 killed at block 10 (the owner of the
+   block): one recovery and one eviction, 3 hosts alive, 2 blocks
+   replayed from the step-7 checkpoint; the 3-shard engine's registers,
+   ``degrees``, ``neighborhood(3)`` under ``ring``, ``ring_overlap`` and
+   ``allgather`` and ``union_size`` of the 4,096 sets equal the local
+   engine's bit for bit, the replica ids intact; the run's time, each
+   checkpoint's time (calling thread and until written),
+   ``last_recovery_ms``, the launch counts (at least 16 accumulate
+   launches) and the peak memory printed; then the module's
+   ``--smoke`` in process, a scale-16 run in which host 1 falls silent
+   past its lease (evicted) and host 3 is slowed (a straggler, kept),
+   and ``train_loop`` on CUDA tensors for 7 steps, restarted: restored
+   from step 6 onto the card, equal to an uninterrupted run;
 5b. packed main path, once the byte engine is freed, counters zeroed just
    before: the same steps with ``layout="packed"``, each timed, with peak
    memory and the same launch counts (then a short packed ``QueryServer``
@@ -168,6 +186,18 @@ Phases, one line each:
    83,253,750; ``triangle_heavy_hitters(k=100, mode="edge")`` gated as
    in phase 9, its top-100 recall against the exact counts and its
    total's relative error printed, not gated;
+9t. telemetry, counters zeroed just before: Moonlight-16B-A3B's router
+   shape (64 experts, top 6, a 163,840-token vocabulary) over a
+   ``SyntheticCorpus`` batch of 256 x 4,096 tokens (6,291,456
+   assignments), the routing a seeded function of the token id with
+   experts 0 and 1 given identical token sets: ``RoutingSketch(64,
+   p=10)`` (coverage against exact distinct counts from ``torch.unique``
+   on the card, each expert's within 3 x rel_std; ``collapse_score``'s 2,016 pairs from one ``ertl_stats``
+   launch, (0, 1) above 0.6 and every other pair below 0.2), and
+   ``NGramSketch(n=2, p=12)`` over the corpus's 4 data shards (the merge
+   equal to one sketch over every token byte for byte, ``distinct``
+   within 3 x rel_std of the exact bigram count); times on their own
+   lines;
 10. small reference: the same queries at RMAT scale 10 on the CPU (plain
     versions) and on the card, which must agree, the top-20 recall of
     the estimated triangle heavy hitters against exact counts (reported),
@@ -191,6 +221,7 @@ than "cuda", "byte" and "hll".
 """
 from __future__ import annotations
 
+import collections
 import json
 import shutil
 import statistics
@@ -220,6 +251,15 @@ COLOR_RMS_BOUND = 2.0
 #: C = A x A with A = rmat(KRON_FACTOR_SCALE, 8, seed=0): n = 65,536 and
 #: 3,302,450 undirected edges, whose exact triangle count is KRON_TRIANGLES
 KRON_FACTOR_SCALE, KRON_TRIANGLES = 8, 83_253_750
+#: phase 5r: the coordinator's hosts, block, cadence, kill and replicas
+#: at full width, and the delay of the scale-16 run's slow host
+COORD_HOSTS, COORD_BLOCK, COORD_CKPT_EVERY, COORD_KILL = 4, 1 << 22, 8, 10
+COORD_REPLICAS, COORD_SLOW_S = 1024, 0.5
+#: phase 9t: Moonlight-16B-A3B's router (64 experts, top 6) and vocabulary,
+#: a batch of 256 x 4,096 tokens, split into 4 data shards for the n-grams
+TEL_EXPERTS, TEL_TOPK, TEL_VOCAB = 64, 6, 163_840
+TEL_SEQ, TEL_BATCH, TEL_SHARDS = 4096, 256, 4
+TEL_P_ROUTING, TEL_P_NGRAM = 10, 12
 DEVICE = "cuda"
 
 SOURCES = {
@@ -2257,16 +2297,10 @@ def sharded_triangles(torch, np, counted):
         f"{mem_peak(torch, base, counted.peaks)}")
 
 
-def sharded_phase(torch, np, edges, n, pairs, sets):
-    """Phase 5h: the sharded backend at SHARDS shards on the one card, the
-    main path's graph, byte then packed; then reshard, ADS and triangles.
-    Launch counts are taken over the sharded engine's calls only (the
-    local engine's reference answers run between the counted windows).
-    Returns the counts."""
+def launch_counter(torch):
+    """``counted(fn)``: run ``fn``, synchronize, and add the launches it
+    made to ``counted.counts`` (launches outside such calls not counted)."""
     from repro_torch.kernels import _build
-
-    t_phase = time.perf_counter()
-    torch.cuda.empty_cache()
 
     def counted(fn):
         before = _build.launch_counts()
@@ -2276,6 +2310,18 @@ def sharded_phase(torch, np, edges, n, pairs, sets):
             counted.counts[k] += v - before[k]
         return out
     counted.counts = {k: 0 for k in _build.launch_counts()}
+    return counted
+
+
+def sharded_phase(torch, np, edges, n, pairs, sets):
+    """Phase 5h: the sharded backend at SHARDS shards on the one card, the
+    main path's graph, byte then packed; then reshard, ADS and triangles.
+    Launch counts are taken over the sharded engine's calls only (the
+    local engine's reference answers run between the counted windows).
+    Returns the counts."""
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    counted = launch_counter(torch)
     counted.peaks = []  # each sub-phase's peaks (bytes), for the maximum
 
     for layout in ("byte", "packed"):
@@ -2775,6 +2821,388 @@ def failover_phase(torch, np):
     return counts
 
 
+# -------------------------------------------------------- failover runtime
+def _checkpoint_clock(c):
+    """Time each checkpoint of Coordinator ``c``: the calling thread's
+    share (the host copy of the panel and the edges, the thread's start)
+    and the time until its write completes. Returns the list the times
+    land in, one dict a checkpoint with its ``step``, ``own`` (calling
+    thread, s) and ``done`` (to written, s); a write that never completed
+    has no ``done``. Writes complete in the order they began (each save
+    waits for the previous write), so the writer thread takes the oldest
+    pending entry."""
+    times, pending = [], collections.deque()
+    take, gc = c._checkpoint, c.ckpt._gc
+
+    def checkpoint(eng, step):
+        rec = {"step": step, "t0": time.perf_counter()}
+        times.append(rec)
+        pending.append(rec)  # before take(): its write may end first
+        take(eng, step)
+        rec["own"] = time.perf_counter() - rec["t0"]
+
+    def written():
+        gc()
+        rec = pending.popleft()
+        rec["done"] = time.perf_counter() - rec["t0"]
+
+    c._checkpoint, c.ckpt._gc = checkpoint, written
+    return times
+
+
+def coordinator_phase(torch, np, edges, n, sets):
+    """Phase 5r: the failover coordinator at full width, counters zeroed
+    just before and taken over the coordinator's run and the recovered
+    engine's queries only (the local reference runs between them): 4
+    hosts, sharded, host 2 killed at block 10 of 16, checkpoints every 8
+    blocks under build/; the recovered 3-shard engine against the local
+    engine bit for bit. Then the module's own smoke, a scale-16 run with
+    a silent and a slow host, and a train_loop restart on the card.
+    Returns the counts."""
+    import importlib
+
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.graph import generators
+    from repro_torch.runtime.faults import (DropHeartbeat, FaultInjector,
+                                            KillHost, SlowHost)
+    from repro_torch.runtime.ft import FTConfig
+    coord = importlib.import_module("repro_torch.runtime.coordinator")
+
+    t_phase = time.perf_counter()
+    path = ROOT / "build" / "chip_smoke_coord"
+    shutil.rmtree(path, ignore_errors=True)
+    counted = launch_counter(torch)
+    counts = counted.counts
+
+    deg = np.bincount(edges.ravel(), minlength=n)
+    hot = np.sort(np.argsort(-deg, kind="stable")[:COORD_REPLICAS])
+    base = mem_start(torch)
+    c = coord.Coordinator(
+        edges, n, HLLConfig(p=P), ft=FTConfig(ckpt_dir=str(path)),
+        config=coord.CoordinatorConfig(hosts=COORD_HOSTS, block=COORD_BLOCK,
+                                       ckpt_every=COORD_CKPT_EVERY),
+        faults=FaultInjector(faults=(KillHost(host=2,
+                                              at_block=COORD_KILL),)),
+        backend="sharded", replicate=hot, device=DEVICE)
+    ckpt_times = _checkpoint_clock(c)
+    try:
+        t0 = time.perf_counter()
+        eng = counted(c.run)
+        secs = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    stats = c.stats
+    blocks = -(-len(edges) // COORD_BLOCK)
+    log(f"coordinator: run: {secs:.3f} s, {blocks} blocks of "
+        f"{COORD_BLOCK} edges, {COORD_HOSTS} hosts, sharded, host 2 killed "
+        f"at block {COORD_KILL}, checkpoints every {COORD_CKPT_EVERY} "
+        f"blocks, {COORD_REPLICAS} replicas; "
+        f"{mem_peak(torch, base, [])}")
+    for rec in ckpt_times:
+        log(f"coordinator: checkpoint step {rec['step']}: "
+            f"{rec['own']:.3f} s on the calling thread, written "
+            f"{rec.get('done', float('nan')):.3f} s after it began")
+    if (len(ckpt_times) != stats["checkpoints_written"]
+            or not all("done" in rec for rec in ckpt_times)):
+        fail(f"coordinator: {stats['checkpoints_written']} checkpoints, "
+             f"{sum('done' in rec for rec in ckpt_times)} of "
+             f"{len(ckpt_times)} timed to their write")
+    log(f"coordinator: last_recovery_ms {stats['last_recovery_ms']:.1f}")
+    log(f"coordinator: stats {json.dumps(stats)}")
+    want = {"recoveries": 1, "evictions": 1, "hosts_alive": 3,
+            "blocks_replayed": 2, "hosts_evicted": [2]}
+    got = {k: stats[k] for k in want}
+    if got != want or eng.shards != 3 or eng.m != len(edges):
+        fail(f"coordinator: stats {got} (shards {eng.shards}, m {eng.m}), "
+             f"want {want}, 3 shards, m {len(edges)}")
+    if counts["hll_accumulate"] < blocks:
+        fail(f"coordinator: {counts['hll_accumulate']} accumulate launches "
+             f"for {blocks} blocks")
+
+    ref = engine.build(edges, n, HLLConfig(p=P), device=DEVICE)
+    regs = eng.regs
+    if not torch.equal(regs[:n], ref.regs[:n]):
+        fail("coordinator: the recovered registers differ from the local "
+             "engine's")
+    del regs
+    checks = ["registers"]
+    if not np.array_equal(counted(eng.degrees), ref.degrees()):
+        fail("coordinator: degrees differ from the local engine's")
+    checks.append("degrees")
+    want_hops = ref.neighborhood(T_MAX)
+    for schedule in ("ring", "ring_overlap", "allgather"):
+        got_hops, t = timed(torch, lambda: counted(
+            lambda: eng.neighborhood(T_MAX, schedule=schedule)))
+        if not all(np.array_equal(a, b) for a, b in zip(got_hops,
+                                                        want_hops)):
+            fail(f"coordinator: neighborhood({T_MAX}) under {schedule} "
+                 f"differs from the local engine's")
+        checks.append(f"neighborhood({T_MAX}) {schedule} ({t:.3f} s)")
+    if not np.array_equal(counted(lambda: eng.union_size(sets)),
+                          ref.union_size(sets)):
+        fail("coordinator: union_size differs from the local engine's")
+    checks.append(f"union_size of {len(sets)} sets")
+    if not np.array_equal(eng.replicated_ids, hot):
+        fail("coordinator: the replica ids did not survive recovery")
+    checks.append("replica ids")
+    log(f"coordinator: recovered 3-shard engine equals the local engine "
+        f"bit for bit: {', '.join(checks)}; "
+        f"{mem_peak(torch, base, [])}")
+    log(f"coordinator: launches {({k: v for k, v in counts.items() if v})}")
+    for k in ("hll_accumulate", "hll_estimate_stats", "hll_propagate_into",
+              "union_estimate_stats"):
+        if counts[k] == 0:
+            fail(f"coordinator: {k} never launched on the recovered path")
+    del eng, ref, want_hops
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    if counted(lambda: coord._smoke(DEVICE)) != 0:
+        fail("coordinator: the module's --smoke failed")
+    log(f"coordinator: --smoke in process: {time.perf_counter() - t0:.2f} s")
+
+    small = generators.rmat(FT_SCALE, EDGE_FACTOR, seed=SEED)
+    small_n = 1 << FT_SCALE
+    inj = FaultInjector(faults=(
+        DropHeartbeat(host=1, at_block=5, count=1000),
+        SlowHost(host=3, at_block=11, delay_s=COORD_SLOW_S, count=4)))
+    try:
+        (eng, stats), t = timed(torch, lambda: counted(
+            lambda: coord.coordinator(
+                small, small_n, HLLConfig(p=P),
+                ft=FTConfig(ckpt_dir=str(path)),
+                config=coord.CoordinatorConfig(hosts=4, block=small_n,
+                                               ckpt_every=4),
+                faults=inj, device=DEVICE)))
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    ref = engine.build(small, small_n, HLLConfig(p=P), device=DEVICE)
+    if not (stats["hosts_evicted"] == [1] and stats["evictions"] == 1
+            and stats["straggler_steps"] >= 1
+            and torch.equal(eng.regs, ref.regs)):
+        fail(f"coordinator: silent and slow hosts: {stats}")
+    log(f"coordinator: rmat scale {FT_SCALE}, host 1 silent from block 5, "
+        f"host 3 slowed {COORD_SLOW_S} s from block 11: {t:.2f} s, "
+        f"evicted {stats['hosts_evicted']}, straggler steps "
+        f"{stats['straggler_steps']}, the slow host kept; registers equal "
+        f"a one-shot build")
+
+    train_restart(torch, path)
+    log(f"coordinator: phase {time.perf_counter() - t_phase:.1f} s, "
+        f"launches with the smoke and the scale-{FT_SCALE} run "
+        f"{({k: v for k, v in counts.items() if v})}")
+    return counts
+
+
+def train_restart(torch, path):
+    """train_loop on CUDA tensors for 7 steps, then a restart that must
+    restore step 6 onto the card; the directory is removed."""
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.runtime.ft import FTConfig, train_loop
+
+    def step_fn(params, opt, batch, step):
+        params = {"w": params["w"] + batch["tokens"].float().mean()}
+        return params, opt + 1, {"loss": params["w"].sum()}
+
+    def run(steps):
+        return train_loop(
+            step_fn=step_fn, params={"w": torch.zeros(8, device=DEVICE)},
+            opt_state=torch.zeros((), dtype=torch.int64, device=DEVICE),
+            corpus=SyntheticCorpus(vocab_size=1000, seq_len=64,
+                                   global_batch=4, seed=SEED),
+            num_steps=steps, ft=FTConfig(ckpt_dir=str(path), ckpt_every=3),
+            to_device=lambda b: {k: torch.from_numpy(v).to(DEVICE)
+                                 for k, v in b.items()}, log_every=0)
+
+    try:
+        full, _, _ = run(9)
+        shutil.rmtree(path)
+        _, _, first = run(7)
+        params, opt, hist = run(9)
+    finally:
+        shutil.rmtree(path, ignore_errors=True)
+    if not (hist["restored_from"] == 6 and params["w"].is_cuda
+            and int(opt) == 9 and len(first["loss"]) == 7
+            and torch.equal(params["w"], full["w"])):
+        fail(f"coordinator: train_loop restart: restored from "
+             f"{hist['restored_from']}, opt {int(opt)}")
+    log("coordinator: train_loop: 7 steps on the card, then a restart "
+        "restored step 6 onto the card and ran steps 7-8; params equal an "
+        "uninterrupted 9-step run")
+
+
+# ---------------------------------------------------------------- telemetry
+def telemetry_phase(torch, np):
+    """Phase 9t: sketch telemetry at a real routing shape, counters zeroed
+    just before: Moonlight-16B-A3B's router (64 experts, top 6) over a
+    SyntheticCorpus batch of 256 x 4,096 tokens from a 163,840-token
+    vocabulary; the routing a seeded function of the token id, experts
+    0 and 1 given identical token sets. RoutingSketch(64, p=10) and
+    NGramSketch(n=2, p=12) over the corpus in 4 shards, against exact
+    counts on the card. Returns the counts."""
+    from repro_torch.core.hll import HLLConfig, rel_std
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.data.telemetry import NGramSketch, RoutingSketch
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    base = mem_start(torch)
+    corpus = dict(vocab_size=TEL_VOCAB, seq_len=TEL_SEQ,
+                  global_batch=TEL_BATCH, seed=SEED)
+    t0 = time.perf_counter()
+    tokens = SyntheticCorpus(**corpus).batch(0)["tokens"]
+    shards = [SyntheticCorpus(**corpus, num_shards=TEL_SHARDS,
+                              shard=s).batch(0)["tokens"]
+              for s in range(TEL_SHARDS)]
+    log(f"telemetry: corpus: {tokens.size} tokens and {TEL_SHARDS} shards "
+        f"of {shards[0].size}, {time.perf_counter() - t0:.2f} s on the host")
+    _build.reset_launch_counts()
+
+    # the router: a seeded function of the token id; one token in 8 (the
+    # planted set) goes to experts 0 and 1 together, and neither expert
+    # sees any other token
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED)
+    pick = torch.rand(TEL_VOCAB, TEL_EXPERTS - 2, generator=gen,
+                      device=DEVICE).argsort(dim=1)[:, :TEL_TOPK] + 2
+    planted = torch.rand(TEL_VOCAB, generator=gen, device=DEVICE) < 0.125
+    pair = torch.tensor([0, 1], device=DEVICE).expand(TEL_VOCAB, 2)
+    route = torch.where(planted[:, None],
+                        torch.cat([pair, pick[:, :TEL_TOPK - 2]], dim=1),
+                        pick)
+    tok = torch.from_numpy(tokens.ravel()).to(DEVICE)
+    experts = route[tok]
+    rs = RoutingSketch(TEL_EXPERTS, HLLConfig(p=TEL_P_ROUTING))
+    table, t_up = timed(torch, lambda: rs.update(rs.init(DEVICE), experts, tok))
+    cov, t_cov = timed(torch, lambda: rs.coverage(table))
+    before = _build.launch_counts()["ertl_stats"]
+    jac, t_jac = timed(torch, lambda: rs.collapse_score(table))
+    ertl = _build.launch_counts()["ertl_stats"] - before
+    keys = torch.unique(experts.reshape(-1) * TEL_VOCAB
+                        + tok.repeat_interleave(TEL_TOPK))
+    exact = torch.bincount(keys // TEL_VOCAB, minlength=TEL_EXPERTS)
+    rel = ((cov.double() - exact.double()).abs() / exact.double()).cpu()
+    log(f"telemetry: routing: {experts.numel()} assignments of "
+        f"{tok.numel()} tokens to {TEL_EXPERTS} experts (top {TEL_TOPK}), "
+        f"update {t_up * 1e3:.2f} ms, coverage {t_cov * 1e3:.2f} ms, "
+        f"collapse_score {t_jac * 1e3:.2f} ms ({TEL_EXPERTS * (TEL_EXPERTS - 1) // 2} "
+        f"pairs, ertl_stats launched {ertl} time(s)); exact distinct "
+        f"{int(exact.min())}-{int(exact.max())} an expert; coverage "
+        f"relative error mean {float(rel.mean()):.4f}, max "
+        f"{float(rel.max()):.4f} (rel_std {rel_std(TEL_P_ROUTING):.4f})")
+    if ertl != 1:
+        fail(f"telemetry: collapse_score launched ertl_stats {ertl} times")
+    if float(rel.max()) >= 3 * rel_std(TEL_P_ROUTING):
+        fail("telemetry: an expert's coverage is outside 3 x rel_std of "
+             "its exact distinct count")
+    others = jac.copy()
+    others[0, 1] = others[1, 0] = 0.0
+    log(f"telemetry: collapse_score: (0, 1) {jac[0, 1]:.4f}, every other "
+        f"pair at most {others.max():.4f}")
+    if not (jac.shape == (TEL_EXPERTS, TEL_EXPERTS) and np.isfinite(jac).all()
+            and jac[0, 1] > 0.6 and others.max() < 0.2):
+        fail("telemetry: collapse_score does not single out the planted "
+             "pair (0, 1)")
+
+    ns = NGramSketch(n=2, cfg=HLLConfig(p=TEL_P_NGRAM))
+    parts = [torch.from_numpy(s).to(DEVICE) for s in shards]
+    sketches, t_ng = timed(torch, lambda: [ns.update(ns.init(DEVICE), s)
+                                           for s in parts])
+    merged = sketches[0]
+    for sk in sketches[1:]:
+        merged = ns.merge(merged, sk)
+    whole = torch.cat(parts)
+    one, t_one = timed(torch, lambda: ns.update(ns.init(DEVICE), whole))
+    if not torch.equal(merged, one):
+        fail("telemetry: the merged shard sketches differ from one sketch "
+             "over every token")
+    est, t_est = timed(torch, lambda: ns.distinct(merged))
+    bigrams = torch.unique(whole[:, :-1].long() * TEL_VOCAB
+                           + whole[:, 1:].long()).numel()
+    err = abs(est - bigrams) / bigrams
+    log(f"telemetry: n-grams: {TEL_SHARDS} shard sketches {t_ng * 1e3:.2f} "
+        f"ms, one sketch over all {whole.numel()} tokens {t_one * 1e3:.2f} "
+        f"ms, equal to their merge byte for byte; distinct "
+        f"{est:.1f} against {bigrams} exact bigrams ({err:.4f}, "
+        f"{t_est * 1e3:.2f} ms)")
+    if err >= 3 * rel_std(TEL_P_NGRAM):
+        fail(f"telemetry: distinct bigrams off by {err:.4f}")
+    counts = dict(_build.launch_counts())
+    log(f"telemetry: phase {time.perf_counter() - t_phase:.1f} s, "
+        f"{mem_peak(torch, base, [])}, launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    for k in ("hll_accumulate", "hll_estimate_stats", "ertl_stats"):
+        if counts[k] == 0:
+            fail(f"telemetry: {k} never launched")
+    telemetry_vs_plain(torch, np, rs, table, cov, experts, tok, ns,
+                       sketches[0], shards[0], merged, est)
+    return counts
+
+
+def telemetry_vs_plain(torch, np, rs, table, cov, experts, tok, ns,
+                       shard_sketch, shard, merged, est):
+    """Phase 9t's kernels against their plain versions on the phase's own
+    inputs, after its counts are taken (these launches are not the
+    path's): the routing table (6,291,456 keys into 64 rows) byte for
+    byte against the plain accumulate on the card; the ertl_stats
+    histograms of all 2,016 expert pairs bit for bit; the (s, z) behind
+    ``coverage`` (64 rows at p=10) and ``distinct`` (one row at p=12)
+    with ``z`` exact and ``s`` within ``rtol=1e-6``, phase 4's estimate
+    tolerance, and the coverage within the same rtol of the estimate
+    from the plain (s, z); one n-gram shard's sketch byte for byte
+    against the same update on the CPU, where the hash and the
+    accumulate run their plain versions."""
+    from repro_torch.core.hll import estimate_from_stats
+    from repro_torch.kernels import ertl_stats, hll_accumulate, hll_estimate
+
+    cfg = rs.cfg
+    rows = experts.reshape(-1).to(torch.int32)
+    keys = tok.repeat_interleave(TEL_TOPK).to(torch.int32).view(torch.uint32)
+    want, t_acc = timed(torch, lambda: hll_accumulate.plain(
+        torch.zeros_like(table), rows, keys, p=cfg.p, seed=cfg.seed))
+    if not torch.equal(table, want):
+        fail(f"telemetry: the routing table differs from the plain "
+             f"accumulate in {int((table != want).sum())} registers")
+    del rows, keys, want
+
+    i, j = np.triu_indices(TEL_EXPERTS, k=1)
+    idx = torch.from_numpy(np.stack([i, j])).to(table.device)
+    a, b = table[idx[0]].contiguous(), table[idx[1]].contiguous()
+    st_k = ertl_stats.ertl_stats(a, b, cfg.q)
+    st_p, t_ertl = timed(torch, lambda: ertl_stats.plain(a, b, cfg.q))
+    if not torch.equal(st_k, st_p):
+        fail(f"telemetry: ertl_stats differs from its plain version on the "
+             f"{len(i)} expert pairs (max abs err "
+             f"{float((st_k - st_p).abs().max())})")
+
+    errs = []
+    for what, regs, rcfg, got in (
+            ("coverage", table, cfg, cov),
+            ("distinct", merged.reshape(1, -1), ns.cfg,
+             torch.tensor([est], device=merged.device))):
+        sz_k = hll_estimate.hll_estimate_stats(regs)
+        sz_p = hll_estimate.plain(regs)
+        from_plain = estimate_from_stats(sz_p[:, 0], sz_p[:, 1], rcfg)
+        if not (torch.equal(sz_k[:, 1], sz_p[:, 1])
+                and torch.allclose(sz_k[:, 0], sz_p[:, 0], rtol=1e-6, atol=0)
+                and torch.allclose(got.to(from_plain.dtype), from_plain,
+                                   rtol=1e-6, atol=0)):
+            fail(f"telemetry: the (s, z) behind {what} differ from the "
+                 f"plain estimate's")
+        errs.append(f"{what} {regs.shape[0]} x {regs.shape[1]} max abs err "
+                    f"{float((sz_k - sz_p).abs().max())}")
+
+    cpu = ns.update(ns.init("cpu"), shard)
+    if not torch.equal(shard_sketch.cpu(), cpu):
+        fail("telemetry: an n-gram shard sketch differs from the same "
+             "update on the CPU")
+    log(f"telemetry: kernels vs plain on the phase's inputs: routing table "
+        f"equal byte for byte (plain accumulate {t_acc * 1e3:.2f} ms), "
+        f"ertl_stats on {len(i)} pairs equal bit for bit (plain "
+        f"{t_ertl * 1e3:.2f} ms), (s, z) {'; '.join(errs)}, the n-gram "
+        f"shard sketch of {shard.size} tokens equal to the CPU's")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -2869,6 +3297,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     phases.append(sharded_phase(torch, np, edges, n, pairs, sets))
     torch.cuda.empty_cache()
+    phases.append(coordinator_phase(torch, np, edges, n, sets))
+    torch.cuda.empty_cache()
     ads_eng, ads_counts, hist = ads_path(torch, np, edges, n)
     phases += [ads_counts, merge_phase(torch, np, edges, n, ads_eng),
                checkpoint_phase(torch, np, n, ads_eng, hist)]
@@ -2882,6 +3312,7 @@ def main() -> int:
     t0 = time.perf_counter()
     phases += phases_new + [kron_phase(torch, np)]
     t_new += time.perf_counter() - t0
+    phases.append(telemetry_phase(torch, np))
     t0 = time.perf_counter()
     phases.append(small_reference(torch, np))
     log(f"small reference: {time.perf_counter() - t0:.1f} s")

@@ -8,11 +8,15 @@ crashed writer never corrupts the latest checkpoint, and
 :func:`latest_step` only trusts directories with a manifest. Either
 package loads the other's files.
 
-The tree is a flat dict of numpy arrays; its keys are the leaf keys the
-JAX package derives from a dict's paths (``regs``, ``edges``,
-``replica_ids``). The JAX package stores ``bfloat16`` leaves as a raw
-integer view and records the logical dtype; the port has no
-``ml_dtypes`` and refuses such a leaf with ``ValueError``.
+A tree is a leaf (a tensor, an array or a number) or a dict, list or
+tuple of trees. Leaves are keyed as the JAX package keys its pytree
+paths: dict keys and sequence indices joined by ``.`` (``regs``,
+``params.blocks.0.w``), dict keys in sorted order; ``None`` holds no
+leaf. ``bfloat16`` tensors are stored as the JAX package stores them, a
+raw ``uint16`` view with the logical dtype in the manifest; they come
+back through a template (:func:`restore_checkpoint` with ``like_tree``)
+whose leaf is a ``bfloat16`` tensor, and a flat restore refuses them
+with ``ValueError`` (numpy has no ``bfloat16``).
 :class:`AsyncCheckpointer` writes steps on a background thread, from a
 host copy of every leaf taken before the thread starts.
 
@@ -66,13 +70,43 @@ def require_family(extra: dict | None, expected: str, what: str) -> str:
     return saved
 
 
-def save_checkpoint(ckpt_dir: str, step: int, tree: dict,
-                    extra: dict | None = None) -> str:
-    """Atomically write ``tree`` (``{key: array}``) as step_<step>.
+def _flatten(tree, prefix: tuple = ()) -> list:
+    """``(key, leaf)`` pairs of ``tree`` in the JAX package's leaf order:
+    dict keys sorted, sequence items in order, ``None`` holding none."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in _flatten(tree[k], prefix + (str(k),))]
+    if isinstance(tree, (list, tuple)):
+        return [kv for i, sub in enumerate(tree)
+                for kv in _flatten(sub, prefix + (str(i),))]
+    return [(".".join(prefix), tree)]
 
-    ``extra`` is a JSON-serializable dict stored verbatim in the manifest.
-    Returns the final path.
-    """
+
+def _host_leaf(leaf) -> tuple[np.ndarray, str]:
+    """``(array to store, logical dtype)`` of one leaf, as a host array
+    that owns its bytes: a tensor is copied off its device (or out of its
+    CPU storage, which the caller may go on mutating), a ``bfloat16`` one
+    as its raw ``uint16`` view; a numpy leaf is kept as it is."""
+    if isinstance(leaf, torch.Tensor):
+        t = leaf.detach().to("cpu", copy=True)
+        if t.dtype == torch.bfloat16:
+            return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+        arr = t.numpy()
+        return arr, str(arr.dtype)
+    arr = np.asarray(leaf)
+    return arr, str(arr.dtype)
+
+
+def _host_leaves(tree) -> list:
+    """``(key, array, logical dtype)`` for every leaf of ``tree``."""
+    return [(key, *_host_leaf(leaf)) for key, leaf in _flatten(tree)]
+
+
+def _write(ckpt_dir: str, step: int, leaves: list,
+           extra: dict | None) -> str:
+    """Atomically write host ``leaves`` as step_<step>; the final path."""
     final = os.path.join(ckpt_dir, f"step_{step}")
     tmp = os.path.join(ckpt_dir, f".tmp-step_{step}")
     if os.path.exists(tmp):
@@ -81,17 +115,27 @@ def save_checkpoint(ckpt_dir: str, step: int, tree: dict,
     manifest = {"step": step, "leaves": {}}
     if extra is not None:
         manifest["extra"] = extra
-    for key in sorted(tree):  # the JAX package flattens a dict by sorted key
-        arr = np.asarray(tree[key])
+    for key, arr, logical in leaves:
         np.save(os.path.join(tmp, key + ".npy"), arr)
         manifest["leaves"][key] = {"shape": list(arr.shape),
-                                   "dtype": str(arr.dtype)}
+                                   "dtype": logical}
     with open(os.path.join(tmp, "manifest.json"), "w") as f:
         json.dump(manifest, f)
     if os.path.exists(final):
         shutil.rmtree(final)
     os.rename(tmp, final)
     return final
+
+
+def save_checkpoint(ckpt_dir: str, step: int, tree,
+                    extra: dict | None = None) -> str:
+    """Atomically write ``tree`` (a leaf, or nested dicts, lists and
+    tuples of tensors, arrays and numbers) as step_<step>.
+
+    ``extra`` is a JSON-serializable dict stored verbatim in the manifest.
+    Returns the final path.
+    """
+    return _write(ckpt_dir, step, _host_leaves(tree), extra)
 
 
 def read_manifest(ckpt_dir: str, step: int) -> dict:
@@ -110,33 +154,64 @@ def latest_step(ckpt_dir: str) -> int | None:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(ckpt_dir: str, step: int) -> dict:
-    """Every leaf of step_<step> as ``{key: np.ndarray}``.
+def _like(arr: np.ndarray, logical: str, like, key: str, src: str):
+    """A stored leaf shaped after its template leaf ``like``: a tensor on
+    ``like``'s device and of its dtype, an array of its dtype, or a number
+    of its type."""
+    if isinstance(like, torch.Tensor):
+        if logical == "bfloat16":
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+        return t.to(device=like.device, dtype=like.dtype)
+    if logical != str(arr.dtype):
+        raise ValueError(
+            f"leaf {key!r} of {src!r} is stored as {arr.dtype} for "
+            f"logical dtype {logical!r}; restore it into a torch tensor "
+            f"template, numpy has no {logical}")
+    if isinstance(like, np.ndarray):
+        return arr.astype(like.dtype, copy=False)
+    if isinstance(like, (bool, int, float)):
+        return type(like)(arr.item())
+    return arr
 
-    Raises ``ValueError`` for a leaf stored as a view of another dtype
-    (the JAX package's ``bfloat16`` leaves).
+
+def _unflatten(like, prefix: tuple, load):
+    """``like``'s structure with each leaf replaced by ``load(key, leaf)``."""
+    if like is None:
+        return None
+    if isinstance(like, dict):
+        return {k: _unflatten(v, prefix + (str(k),), load)
+                for k, v in like.items()}
+    if isinstance(like, (list, tuple)):
+        return type(like)(_unflatten(v, prefix + (str(i),), load)
+                          for i, v in enumerate(like))
+    return load(".".join(prefix), like)
+
+
+def restore_checkpoint(ckpt_dir: str, step: int, like_tree=None):
+    """The leaves of step_<step>.
+
+    Without ``like_tree``: every leaf as ``{key: np.ndarray}``; a leaf
+    stored as a view of another dtype (the ``bfloat16`` leaves) raises
+    ``ValueError``. With ``like_tree``: a tree of its structure, each
+    leaf read by its key and put on the template leaf's device and dtype
+    (a tensor), or cast to its dtype (an array) or type (a number); a
+    key the step lacks raises ``KeyError``.
     """
     src = os.path.join(ckpt_dir, f"step_{step}")
-    manifest = read_manifest(ckpt_dir, step)
-    out = {}
-    for key, meta in manifest["leaves"].items():
+    leaves = read_manifest(ckpt_dir, step)["leaves"]
+
+    def load(key, like):
+        if key not in leaves:
+            raise KeyError(f"{src!r} holds no leaf {key!r}; it has "
+                           f"{sorted(leaves)}")
         arr = np.load(os.path.join(src, key + ".npy"))
-        if str(arr.dtype) != meta["dtype"]:
-            raise ValueError(
-                f"leaf {key!r} of {src!r} is stored as {arr.dtype} for "
-                f"logical dtype {meta['dtype']!r}; view dtypes need "
-                f"ml_dtypes, which the port does not use")
-        out[key] = arr
-    return out
+        return _like(arr, leaves[key]["dtype"], like, key, src)
 
-
-def _host_copy(leaf) -> np.ndarray:
-    """A host array that owns its bytes: a tensor is copied off its device
-    (or out of its CPU storage, which the writer may go on mutating); a
-    numpy leaf is kept as it is."""
-    if isinstance(leaf, torch.Tensor):
-        return leaf.detach().to("cpu", copy=True).numpy()
-    return np.asarray(leaf)
+    if like_tree is not None:
+        return _unflatten(like_tree, (), load)
+    return {key: load(key, None) for key in leaves}
 
 
 class AsyncCheckpointer:
@@ -160,15 +235,14 @@ class AsyncCheckpointer:
             self._thread.join()
             self._thread = None
 
-    def save(self, step: int, tree: dict, extra: dict | None = None) -> None:
-        """Write ``tree`` (``{key: array or tensor}``) as step_<step> in the
-        background; ``extra`` goes to the manifest as in
-        :func:`save_checkpoint`."""
+    def save(self, step: int, tree, extra: dict | None = None) -> None:
+        """Write ``tree`` (as in :func:`save_checkpoint`) as step_<step> in
+        the background; ``extra`` goes to the manifest."""
         self.wait()
-        host_tree = {k: _host_copy(v) for k, v in tree.items()}
+        leaves = _host_leaves(tree)
 
         def work():
-            save_checkpoint(self.ckpt_dir, step, host_tree, extra=extra)
+            _write(self.ckpt_dir, step, leaves, extra)
             self._gc()
 
         self._thread = threading.Thread(target=work, daemon=True)

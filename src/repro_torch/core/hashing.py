@@ -17,14 +17,14 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["fmix32", "hash64", "bucket_rho", "seed_words", "clz32"]
+__all__ = ["fmix32", "mul32", "hash64", "bucket_rho", "seed_words", "clz32"]
 
 MASK32 = 0xFFFFFFFF
 _GOLD_HI = 0x9E3779B9  # golden-ratio odd constant (splitmix)
 _GOLD_LO = 0x85EBCA6B
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+def mul32(x: torch.Tensor, c: int) -> torch.Tensor:
     """``(x * c) mod 2^32`` for int64 ``x`` in [0, 2^32) and a constant or
     tensor ``c`` in [0, 2^32), without int64 overflow."""
     lo = x & 0xFFFF
@@ -36,9 +36,9 @@ def fmix32(x: torch.Tensor) -> torch.Tensor:
     """murmur3 32-bit finalizer over int64-held uint32 values."""
     x = x & MASK32
     x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
+    x = mul32(x, 0x85EBCA6B)
     x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
+    x = mul32(x, 0xC2B2AE35)
     x = x ^ (x >> 16)
     return x
 
@@ -62,7 +62,7 @@ def hash64(keys: torch.Tensor, seed: int = 0) -> tuple[torch.Tensor, torch.Tenso
     s_hi, s_lo = seed_words(seed)
     hi = fmix32(k ^ s_hi)
     lo = fmix32(((k + _GOLD_LO) & MASK32) ^ s_lo)
-    hi = fmix32((hi + _mul32(lo, _GOLD_HI)) & MASK32)
+    hi = fmix32((hi + mul32(lo, _GOLD_HI)) & MASK32)
     return hi, lo
 
 

@@ -3,9 +3,10 @@
 
 Faults are declared up front as a plan keyed on *(host, global block
 index)* — never on wall-clock time or randomness — so every test and
-benchmark run replays the identical failure schedule. The failover-aware
-``repro_torch.serve.ContinuousServer`` writer consults it per applied
-ingest block (the multi-host coordinator is not ported yet).
+benchmark run replays the identical failure schedule. The multi-host
+coordinator (``repro_torch.runtime.coordinator``) consults it per ingest
+block, and the failover-aware ``repro_torch.serve.ContinuousServer``
+writer per applied ingest block.
 
 Three fault kinds mirror the failure modes the source paper's YGM-style
 deployment has to survive:

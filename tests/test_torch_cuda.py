@@ -1424,3 +1424,106 @@ def test_sharded_engine_on_the_card_equals_local(dev, layout, shards):
                                                         iters=10)
         assert abs(tot - w_tot) <= 1e-9 * abs(w_tot)
         assert np.allclose(vals, w_vals, rtol=1e-9)
+
+
+@pytest.mark.parametrize("backend", ["local", "sharded"])
+def test_coordinator_kill_on_the_card_equals_local(dev, backend, tmp_path):
+    """A kill-one-host run on the card (4 hosts; the sharded engine
+    reloads at 3 shards) equals an uninterrupted local build on the card
+    bit for bit, and its blocks launched the accumulate kernel."""
+    import importlib
+
+    from repro_torch import engine
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.runtime.faults import FaultInjector, KillHost
+    from repro_torch.runtime.ft import FTConfig
+    coord = importlib.import_module("repro_torch.runtime.coordinator")
+    edges, n = _graph(11, 5)
+    before = _build.launch_counts()["hll_accumulate"]
+    eng, stats = coord.coordinator(
+        edges, n, HLLConfig(p=8), ft=FTConfig(ckpt_dir=str(tmp_path / "c")),
+        config=coord.CoordinatorConfig(hosts=4, block=2048, ckpt_every=4),
+        faults=FaultInjector(faults=(KillHost(host=2, at_block=6),)),
+        backend=backend, replicate=[0, 1, 2, 3], device="cuda")
+    torch.cuda.synchronize()
+    blocks = -(-len(edges) // 2048)
+    assert _build.launch_counts()["hll_accumulate"] - before >= blocks
+    assert stats["recoveries"] == stats["evictions"] == 1
+    assert stats["hosts_alive"] == 3 and stats["blocks_replayed"] == 2
+    assert eng.device.type == "cuda" and eng.m == len(edges)
+    if backend == "sharded":
+        assert eng.shards == 3
+        assert [p.device.type for p in eng.shard_regs] == ["cuda"] * 3
+    ref = engine.build(edges, n, HLLConfig(p=8))
+    assert torch.equal(eng.regs[:n], ref.regs[:n])
+    assert np.array_equal(eng.degrees(), ref.degrees())
+    sets = [[0, 1, 2], list(range(5, 60))]
+    assert np.array_equal(eng.union_size(sets), ref.union_size(sets))
+    want = ref.neighborhood(3)
+    for schedule in ("ring", "ring_overlap", "allgather"):
+        for a, b in zip(eng.neighborhood(3, schedule=schedule), want):
+            assert np.array_equal(a, b)
+    assert np.array_equal(eng.replicated_ids, [0, 1, 2, 3])
+
+
+def test_train_loop_restarts_on_the_card(dev, tmp_path):
+    """``train_loop`` on CUDA tensors: a restart restores step 6 onto the
+    card, in the template's dtypes."""
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.runtime.ft import FTConfig, train_loop
+
+    def step_fn(params, opt, batch, step):
+        assert batch["tokens"].device.type == "cuda"
+        return ({"w": params["w"] + 1, "b": params["b"] * 2}, opt + 1,
+                {"loss": params["w"].sum()})
+
+    def run(steps):
+        return train_loop(
+            step_fn=step_fn,
+            params={"w": torch.zeros(4, device=dev),
+                    "b": torch.ones(2, dtype=torch.bfloat16, device=dev)},
+            opt_state=torch.zeros((), dtype=torch.int64, device=dev),
+            corpus=SyntheticCorpus(vocab_size=64, seq_len=8, global_batch=2),
+            num_steps=steps, ft=FTConfig(ckpt_dir=str(tmp_path),
+                                         ckpt_every=3),
+            to_device=lambda b: {k: torch.from_numpy(v).to(dev)
+                                 for k, v in b.items()}, log_every=0)
+
+    p, o, hist = run(7)
+    assert hist["loss"] == [4.0 * s for s in range(7)]
+    p, o, hist = run(9)
+    assert hist["restored_from"] == 6 and hist["loss"] == [28.0, 32.0]
+    assert p["w"].device.type == "cuda" and p["w"].tolist() == [9.0] * 4
+    assert p["b"].dtype == torch.bfloat16 and p["b"].device.type == "cuda"
+    assert p["b"].tolist() == [512.0, 512.0] and int(o) == 9
+
+
+def test_telemetry_on_the_card_matches_the_cpu(dev):
+    """``RoutingSketch`` and ``NGramSketch`` on the card: registers equal
+    the CPU's byte for byte; an update is one accumulate launch and
+    ``collapse_score`` one ``ertl_stats`` launch for every pair."""
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.data.telemetry import NGramSketch, RoutingSketch
+    rng = np.random.default_rng(9)
+    tokens = rng.integers(0, 50_000, size=(8, 512))
+    experts = np.argsort(rng.random((tokens.size, 16)), axis=1)[:, :3]
+    rs = RoutingSketch(16, HLLConfig(p=10))
+    want = rs.update(rs.init(device="cpu"), experts, tokens.ravel())
+    table = _launched("hll_accumulate", lambda: rs.update(
+        rs.init(), torch.from_numpy(experts).to(dev),
+        torch.from_numpy(tokens.ravel()).to(dev)))
+    assert table.device.type == "cuda" and torch.equal(table.cpu(), want)
+    assert np.allclose(rs.coverage(table).cpu().numpy(),
+                       rs.coverage(want).numpy(), rtol=1e-6)
+    jac = _launched("ertl_stats", lambda: rs.collapse_score(table))
+    assert np.allclose(jac, rs.collapse_score(want), rtol=0, atol=1e-4)
+    ns = NGramSketch(n=3, cfg=HLLConfig(p=12))
+    want = ns.update(ns.init(device="cpu"), tokens)
+    sk = _launched("hll_accumulate", lambda: ns.update(ns.init(), tokens))
+    assert sk.device.type == "cuda" and torch.equal(sk.cpu(), want)
+    from repro_torch.data import telemetry
+    hashes = [telemetry._window_hashes(telemetry._int64_on(tokens, d), 3)
+              for d in (dev, torch.device("cpu"))]
+    assert hashes[0].is_cuda and torch.equal(hashes[0].cpu(), hashes[1])
+    assert abs(ns.distinct(sk) - ns.distinct(want)) <= 1e-6 * ns.distinct(
+        want)
