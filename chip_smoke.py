@@ -16,7 +16,8 @@ Phases, one line each:
    1-63;
 4. kernel vs plain: each kernel against its plain PyTorch version on the
    card at the main path's shapes, with its time, the plain version's,
-   the bound (bytes this run's data needs over 3.35 TB/s) and, for
+   the bound (bytes this run's data needs over the H100's 3.35 TB/s,
+   ``repro_torch.analysis.roofline.HW().hbm_bw``) and, for
    accumulate, the ``scatter_reduce_`` yardstick. The estimate is also
    held on a sweep of p and ragged row counts in both layouts and timed
    on its own line at the triangle phase's block of 2^18 gathered rows.
@@ -53,7 +54,9 @@ Phases, one line each:
    timed, with the run length the wrapper chose, the gather floor (one
    source row read an edge) beside the bound and, on the byte layout,
    the library yardstick ``index_reduce_(0, dst, rows, "amax")`` on the
-   source rows gathered beforehand;
+   source rows gathered beforehand; and every tuned kernel at every value
+   of its autotune grid (``kernels.autotune.SWEEPS``, phase 4t's
+   candidates) on the same inputs, equal to the plain result bit for bit;
 5. main path, with launch counters zeroed just before: ``engine.build``
    (``hll_accumulate`` launched once per ``INGEST_BLOCK`` chunk, 16
    times at scale 22), ``degrees`` (mean relative error against exact
@@ -64,6 +67,24 @@ Phases, one line each:
    (bit for bit the per-kind answers); every kernel of the path must have
    launched; then the share of the pairs that the reference's
    Hessian-overflow flag holds still;
+4t. autotune, right after phase 5 on its byte engine: the packed engine of
+   the same panel answers phase 5's queries on the fallback shapes; every
+   op and layout (7 byte, 6 packed) is swept on the card on the main
+   path's own inputs (``autotune.sweep(op, p=8, inputs=...)``, see
+   ``sweep_inputs``: the winners are filed under those calls' size
+   classes; each candidate the median of 9 CUDA-event timings of its
+   wrapper, L2 written over before each), one line each with every
+   candidate's time, the fastest, the winner (the fallback unless beaten
+   by more than ``autotune.WIN_MARGIN``), the fallback and, for the cost
+   model's five ops, its bound
+   (``analysis.roofline_terms`` of ``analysis.sketch_op_costs``) and the
+   winner's share of it; ``drive_count()`` must rise by the candidates
+   and a second sweep drive none; phase 4's candidate checks must cover
+   all 13 cells; both engines answer ``degrees()``, ``neighborhood(3)``,
+   ``intersection_size``, ``union_size`` and ``query_batch`` again with
+   the winners installed, equal to the fallback's answers bit for bit,
+   each step's seconds beside the fallback's; then ``clear_cache()``, so
+   every later phase launches the fallback shapes;
 5f. functional core, counters zeroed just before: ``degreesketch.
    accumulate`` (one ``hll_accumulate`` launch per 2^15 directed edges)
    equal to the main path's panel, ``hll.degree_estimates`` to
@@ -231,7 +252,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 SCALE, EDGE_FACTOR, SEED, P = 22, 16, 0, 8
 N_PAIRS = 16384
 N_SETS = 4096
@@ -337,7 +357,10 @@ def cuda_ms(torch, fn, reps: int, setup=None) -> float:
 
 
 def bound_ms(n_bytes: float) -> float:
-    return n_bytes / HBM_BYTES_PER_S * 1e3
+    """Milliseconds ``n_bytes`` take at the H100's device-memory rate
+    (``analysis.roofline.HW``'s default)."""
+    from repro_torch.analysis.roofline import HW
+    return n_bytes / HW().hbm_bw * 1e3
 
 
 def launcher_ms(torch, name, args, reps: int = 20) -> float:
@@ -353,8 +376,9 @@ def launcher_ms(torch, name, args, reps: int = 20) -> float:
 
 
 def pair_launcher_ms(torch, regs, pa, pb, q, layout) -> float:
-    """``launcher_ms`` of intersection_stats on these pairs."""
-    from repro_torch.kernels import _build
+    """``launcher_ms`` of intersection_stats on these pairs, at the
+    fallback launch shape."""
+    from repro_torch.kernels import _build, autotune
     b, w = pa.shape[0], regs.shape[1]
     stats = torch.empty((b, 5, q + 2), dtype=torch.float32,
                         device=regs.device)
@@ -363,12 +387,14 @@ def pair_launcher_ms(torch, regs, pa, pb, q, layout) -> float:
                        (regs.data_ptr(), pa.data_ptr(), pb.data_ptr(),
                         stats.data_ptr(), sz.data_ptr(), b, regs.shape[0],
                         2 * w if layout == "packed" else w, q,
+                        autotune.FALLBACK["intersection_stats"]["pair_block"],
                         torch.cuda.current_stream().cuda_stream))
 
 
 def set_launcher_ms(torch, regs, ids, mask, layout) -> float:
-    """``launcher_ms`` of union_estimate_stats on this set panel."""
-    from repro_torch.kernels import _build
+    """``launcher_ms`` of union_estimate_stats on this set panel, at the
+    fallback launch shape."""
+    from repro_torch.kernels import _build, autotune
     b, w = ids.shape[0], regs.shape[1]
     out = torch.empty((b, 2), dtype=torch.float32, device=regs.device)
     return launcher_ms(torch, _build.kernel_name("union_estimate_stats",
@@ -376,6 +402,7 @@ def set_launcher_ms(torch, regs, ids, mask, layout) -> float:
                        (regs.data_ptr(), ids.data_ptr(), mask.data_ptr(),
                         out.data_ptr(), b, regs.shape[0], ids.shape[1],
                         2 * w if layout == "packed" else w,
+                        autotune.FALLBACK["union_estimate"]["set_block"],
                         torch.cuda.current_stream().cuda_stream))
 
 
@@ -461,7 +488,12 @@ def compare_kernels(torch, np, edges, n, pairs, sets, skew, report):
     err = int((regs_k.to(torch.int16) - regs_p.to(torch.int16)).abs().max())
     if err != 0:
         fail(f"hll_accumulate differs from its plain version (max {err})")
-    del regs_p, rows, keys
+    regs_c = torch.empty_like(regs_k)
+    hold_candidates(torch, "accumulate", "byte",
+                    lambda **kw: hll_accumulate.hll_accumulate(
+                        regs_c.zero_(), rows, keys, p=P, seed=0, **kw),
+                    regs_p)
+    del regs_p, regs_c, rows, keys
     report(*accumulate_timing(torch, np, edges, n_pad, "byte", regs_k, err))
 
     # estimate: the built panel, then a sweep of p and ragged row counts
@@ -472,6 +504,9 @@ def compare_kernels(torch, np, edges, n, pairs, sets, skew, report):
             out_k[:, 0], out_p[:, 0], rtol=1e-6, atol=0):
         fail("hll_estimate_stats differs from its plain version")
     err = float((out_k - out_p).abs().max())
+    hold_candidates(torch, "estimate", "byte",
+                    lambda **kw: hll_estimate.hll_estimate_stats(regs_k, **kw),
+                    out_p)
     compare_estimate_sweep(torch, np)
     ms = cuda_ms(torch, lambda: hll_estimate.hll_estimate_stats(regs_k), 10)
     plain_ms = cuda_ms(torch, lambda: hll_estimate.plain(regs_k), 3)
@@ -487,6 +522,9 @@ def compare_kernels(torch, np, edges, n, pairs, sets, skew, report):
     err = int((prop_k.to(torch.int16) - prop_p.to(torch.int16)).abs().max())
     if err != 0:
         fail(f"hll_propagate differs from its plain version (max {err})")
+    hold_candidates(torch, "propagate", "byte",
+                    lambda **kw: hll_propagate.hll_propagate(regs_k, src, dst,
+                                                             **kw), prop_p)
     del prop_p
     ms = cuda_ms(torch, lambda: hll_propagate.hll_propagate(regs_k, src, dst),
                  5)
@@ -513,6 +551,9 @@ def compare_kernels(torch, np, edges, n, pairs, sets, skew, report):
     if not (torch.equal(sz_k[:, 0, 0], est[pa.long(), 0])
             and torch.equal(sz_k[:, 1, 0], est[pb.long(), 0])):
         fail("intersection_stats' exact sums differ from hll_estimate_stats")
+    hold_candidates(torch, "intersection_stats", "byte",
+                    lambda **kw: intersection_stats.intersection_stats(
+                        regs_k, pa, pb, q, **kw), (st_p, sz_p))
     err = max(float((st_k - st_p).abs().max()),
               float((sz_k - sz_p).abs().max()))
     ms = cuda_ms(torch, lambda: intersection_stats.intersection_stats(
@@ -538,6 +579,9 @@ def compare_kernels(torch, np, edges, n, pairs, sets, skew, report):
             out_k[:, 0], out_p[:, 0], rtol=1e-6, atol=0):
         fail("union_estimate_stats differs from its plain version")
     err = float((out_k - out_p).abs().max())
+    hold_candidates(torch, "union_estimate", "byte",
+                    lambda **kw: union_estimate.union_estimate_stats(
+                        regs_k, ids, mask, **kw), out_p)
     ms = cuda_ms(torch, lambda: union_estimate.union_estimate_stats(
         regs_k, ids, mask), 20)
     alone = set_launcher_ms(torch, regs_k, ids, mask, "byte")
@@ -562,6 +606,8 @@ def compare_kernels(torch, np, edges, n, pairs, sets, skew, report):
     if not torch.equal(st_k, st_p):
         fail("ertl_stats differs from its plain version")
     err = float((st_k - st_p).abs().max())
+    hold_candidates(torch, "ertl_stats", "byte",
+                    lambda **kw: ertl_stats.ertl_stats(a, b, q, **kw), st_p)
     del st_k, st_p
     ms = cuda_ms(torch, lambda: ertl_stats.ertl_stats(a, b, q), 10)
     plain_ms = cuda_ms(torch, lambda: ertl_stats.plain(a, b, q), 3)
@@ -866,6 +912,9 @@ def compare_hip_delta(torch, np, prev, cur, report):
     if not torch.equal(out_k, out_p):
         fail("hip_delta_rows differs from its plain version on D^1 -> D^2")
     err = float((out_k - out_p).abs().max())
+    hold_candidates(torch, "hip_delta", "byte",
+                    lambda **kw: hip_delta.hip_delta_rows(prev, cur, **kw),
+                    out_p)
     rows, r = prev.shape
     grew = int((out_k > 0).sum())
     rng = np.random.default_rng(SEED + 3)
@@ -926,7 +975,12 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, skew, panel,
              f"(max {err})")
     if not torch.equal(regs_k, want):
         fail("hll_accumulate_packed differs from pack_rows of the byte panel")
-    del regs_p, rows, keys
+    regs_c = torch.empty_like(regs_k)
+    hold_candidates(torch, "accumulate", "packed",
+                    lambda **kw: hll_accumulate.hll_accumulate(
+                        regs_c.zero_(), rows, keys, p=P, seed=0,
+                        layout="packed", **kw), regs_p)
+    del regs_p, regs_c, rows, keys
     report(*accumulate_timing(torch, np, edges, n_pad, "packed", regs_k,
                               err))
 
@@ -940,6 +994,9 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, skew, panel,
         fail("hll_estimate_stats_packed differs from its plain version or "
              "from the byte kernel on the clamped panel")
     err = float((out_k - out_p).abs().max())
+    hold_candidates(torch, "estimate", "packed",
+                    lambda **kw: hll_estimate.hll_estimate_stats(
+                        regs_k, layout="packed", **kw), out_p)
     ms = cuda_ms(torch, lambda: hll_estimate.hll_estimate_stats(
         regs_k, layout="packed"), 10)
     plain_ms = cuda_ms(torch, lambda: hll_estimate.plain(
@@ -958,6 +1015,9 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, skew, panel,
     if err != 0:
         fail(f"hll_propagate_packed differs from its plain version "
              f"(max {err})")
+    hold_candidates(torch, "propagate", "packed",
+                    lambda **kw: hll_propagate.hll_propagate(
+                        regs_k, src, dst, layout="packed", **kw), prop_p)
     del prop_p
     prop_b = hll_propagate.hll_propagate(byte, src, dst)
     if not torch.equal(packing.pack_rows(prop_b), prop_k):
@@ -987,6 +1047,10 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, skew, panel,
             and torch.equal(st_k, st_b) and torch.equal(sz_k, sz_b)):
         fail("intersection_stats_packed differs from its plain version or "
              "from the byte kernel on the clamped panel")
+    hold_candidates(torch, "intersection_stats", "packed",
+                    lambda **kw: intersection_stats.intersection_stats(
+                        regs_k, pa, pb, q, layout="packed", **kw),
+                    (st_p, sz_p))
     err = max(float((st_k - st_p).abs().max()),
               float((sz_k - sz_p).abs().max()))
     ms = cuda_ms(torch, lambda: intersection_stats.intersection_stats(
@@ -1013,6 +1077,9 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, skew, panel,
     if not (torch.equal(out_k, out_p) and torch.equal(out_k, out_b)):
         fail("union_estimate_stats_packed differs from its plain version "
              "or from the byte kernel on the clamped panel")
+    hold_candidates(torch, "union_estimate", "packed",
+                    lambda **kw: union_estimate.union_estimate_stats(
+                        regs_k, ids, mask, layout="packed", **kw), out_p)
     err = float((out_k - out_p).abs().max())
     ms = cuda_ms(torch, lambda: union_estimate.union_estimate_stats(
         regs_k, ids, mask, layout="packed"), 20)
@@ -1039,6 +1106,10 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, skew, panel,
     if not (torch.equal(st_k, st_p) and torch.equal(st_k, st_b)):
         fail("ertl_stats_packed differs from its plain version or from the "
              "byte kernel on the unpacked rows")
+    hold_candidates(torch, "ertl_stats", "packed",
+                    lambda **kw: ertl_stats.ertl_stats(a, c, q,
+                                                       layout="packed", **kw),
+                    st_p)
     err = float((st_k - st_p).abs().max())
     del st_k, st_p, st_b, clamped
     ms = cuda_ms(torch, lambda: ertl_stats.ertl_stats(a, c, q,
@@ -1051,6 +1122,247 @@ def compare_packed_kernels(torch, np, edges, n, pairs, sets, skew, panel,
     return regs_k.cpu()
 
 
+#: phase 4t, step 2: (op, layout) -> seconds its grid took to be held
+#: against phase 4's plain result (``hold_candidates``, inside phase 4)
+CANDIDATES: dict[tuple[str, str], float] = {}
+
+
+def hold_candidates(torch, op, layout, run, want):
+    """Phase 4t, step 2, run inside phase 4 where its plain result
+    ``want`` (a tensor, or a tuple of them) lives: ``run(**candidate)``
+    for every candidate of ``op``'s autotune grid, each through the
+    kernel's wrapper on phase 4's inputs, equal to ``want`` bit for
+    bit."""
+    from repro_torch.kernels import autotune
+    (name,) = autotune.FALLBACK[op]
+    grid = autotune.SWEEPS[op]
+    t0 = time.perf_counter()
+    for cand in grid:
+        got = run(**cand)
+        torch.cuda.synchronize()
+        pairs = (zip(got, want) if isinstance(want, tuple)
+                 else [(got, want)])
+        if not all(torch.equal(g, w) for g, w in pairs):
+            fail(f"autotune: {op} ({layout}) with {name}={cand[name]} "
+                 f"differs from its plain version at phase 4's shape")
+    secs = CANDIDATES[(op, layout)] = time.perf_counter() - t0
+    log(f"autotune: candidates: {op} ({layout}) {name} "
+        f"{[c[name] for c in grid]} each equal to the plain version bit "
+        f"for bit at phase 4's shape ({secs:.2f} s)")
+
+
+def sweep_inputs(torch, np, regs, edges, routing, pairs, sets, layout):
+    """Phase 4t: ``ops.<op>``'s tensor arguments at the main path's own
+    shapes on one layout's panel ``regs``: the first ``INGEST_BLOCK``
+    chunk's directed rows and keys (accumulate), the engine's dst-sorted
+    ``routing`` (propagate), the panel (estimate), phase 5's 4,096 sets
+    padded as the engine pads them, its 16,384 pairs, phase 4's 2^18
+    gathered edge pairs (``ertl_stats``) and D^1 -> D^2 (``hip_delta``,
+    byte only)."""
+    from repro_torch.engine import plans
+    from repro_torch.engine.base import SketchEngine
+    from repro_torch.kernels import hll_propagate
+    from repro_torch.kernels.inputs import directed_block
+
+    dev = regs.device
+    ids_np, mask_np = plans.pad_sets(sets)
+    pick = np.random.default_rng(SEED + 1).choice(len(edges), ERTL_PAIRS,
+                                                  replace=False)
+    ends = torch.from_numpy(edges[pick].astype(np.int64)).to(dev)
+    src, dst = routing
+    out = {
+        "accumulate": (regs, *directed_block(
+            edges[:SketchEngine.INGEST_BLOCK], dev)),
+        "propagate": (regs, src, dst),
+        "estimate": (regs,),
+        "union_estimate": (regs, torch.from_numpy(ids_np).to(dev),
+                           torch.from_numpy(mask_np).to(dev)),
+        "intersection_stats": (regs, torch.from_numpy(
+            np.asarray(pairs, dtype=np.int32)).to(dev)),
+        "ertl_stats": (regs[ends[:, 0]], regs[ends[:, 1]]),
+    }
+    if layout == "byte":
+        out["hip_delta"] = (regs, hll_propagate.hll_propagate(
+            regs, src, dst))
+    return out
+
+
+def _sweep_bound_ms(op, layout, inputs):
+    """The cost model's bound of one ``op`` call on ``inputs``
+    (``analysis.flops.sketch_op_costs`` into ``roofline_terms`` with the
+    default H100 ``HW``), or None for an op the model does not cover."""
+    from repro_torch.analysis import flops, roofline_terms, sketch_op_costs
+    if op not in flops.SKETCH_OPS:
+        return None
+    regs = inputs[0]
+    shape = {"n": regs.shape[0]}
+    if op in ("accumulate", "propagate"):
+        shape["edges"] = inputs[1].numel()
+    elif op == "union_estimate":
+        shape.update(sets=inputs[1].shape[0],
+                     set_size=float(inputs[2].sum()) / inputs[1].shape[0])
+    elif op == "intersection_stats":
+        shape["pairs"] = inputs[1].shape[0]
+    c = sketch_op_costs(op, p=P, layout=layout, **shape)
+    return roofline_terms(c["flops"], c["hbm_bytes"], 0.0)["bound_s"] * 1e3
+
+
+def _same_answers(np, got, want):
+    """Engine answers equal bit for bit (arrays, tuples and dicts)."""
+    if isinstance(want, dict):
+        return got.keys() == want.keys() and all(
+            _same_answers(np, got[k], want[k]) for k in want)
+    if isinstance(want, tuple):
+        return all(_same_answers(np, g, w) for g, w in zip(got, want))
+    return np.array_equal(got, want)
+
+
+def autotune_phase(torch, np, eng, edges, n, pairs, sets, want, secs):
+    """Phase 4t, after phase 5 on its byte engine ``eng`` (``want``: its
+    answers, ``secs``: its steps' seconds). The packed engine of the same
+    panel (``pack_rows``) answers first on the fallback shapes; then
+    every op and layout is swept on the card (7 byte, 6 packed) on the
+    main path's inputs (``sweep_inputs``), each candidate's time, the
+    winner, the fallback and the cost model's bound printed, the drives counted, a second sweep driving none; phase 4's
+    candidate checks (``hold_candidates``) must cover all 13; both
+    engines answer again with the winners installed, equal to the
+    fallback's answers bit for bit (the byte engine's to phase 5's too),
+    each step's seconds beside the fallback's rerun here (and, byte,
+    phase 5's first run); then the cache is cleared, so every later phase
+    runs on the fallback shapes."""
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.engine.local import LocalEngine
+    from repro_torch.kernels import _build, autotune, packing
+    from repro_torch.kernels.inputs import directed_routing
+
+    t_phase = time.perf_counter()
+    autotune.clear_cache()
+
+    def queries(e):
+        """Phase 5's queries on engine ``e``: {step: (answer, seconds)}."""
+        e._invalidate_caches()  # neighborhood(3) propagates again
+        steps = {
+            "degrees": e.degrees,
+            "neighborhood": lambda: e.neighborhood(T_MAX),
+            "intersection_size": lambda: e.intersection_size(
+                pairs, method="mle"),
+            "union_size": lambda: e.union_size(sets),
+            "query_batch": lambda: e.query_batch(
+                degrees=True, vertex_sets=sets, pairs=pairs, method="mle")}
+        out = {}
+        for name, fn in steps.items():
+            t0 = time.perf_counter()
+            ans = fn()
+            torch.cuda.synchronize()
+            out[name] = (ans, time.perf_counter() - t0)
+        return out
+
+    peng = LocalEngine.from_regs(packing.pack_rows(eng.regs), n,
+                                 HLLConfig(p=P), edges=edges,
+                                 layout="packed", device=DEVICE)
+    fallback = {"byte": queries(eng), "packed": queries(peng)}
+    for name, (ans, _) in fallback["byte"].items():
+        if not _same_answers(np, ans, want[name]):
+            fail(f"autotune: {name} (byte) rerun on the fallback shapes "
+                 f"differs from phase 5's answer")
+
+    # 1. the sweep: every op and layout, from an empty cache, on the main
+    # path's own inputs (winners are filed under their size class)
+    drives = autotune.drive_count()
+    cells = [(op, layout) for op in autotune.SWEEPS
+             for layout in ("byte", "packed")
+             if not (op == "hip_delta" and layout == "packed")]
+    routing = directed_routing(edges, eng.regs.device)
+    inputs = {layout: sweep_inputs(torch, np, e.regs, edges, routing, pairs,
+                                   sets, layout)
+              for layout, e in (("byte", eng), ("packed", peng))}
+    expected = 0
+    t0 = time.perf_counter()
+    for op, layout in cells:
+        (name,) = autotune.FALLBACK[op]
+        args = inputs[layout][op]
+        size = autotune.work_size(op, args)
+        won = autotune.sweep(op, p=P, impl="cuda", layout=layout,
+                             inputs=args)[name]
+        times = {c[name]: ms for c, ms in autotune.sweep_times(
+            op, p=P, layout=layout, size=size)}
+        expected += len(autotune.SWEEPS[op])
+        if sorted(times) != sorted(c[name] for c in autotune.SWEEPS[op]):
+            fail(f"autotune: {op} ({layout}) timed {sorted(times)}, not "
+                 f"its grid")
+        fb = autotune.FALLBACK[op][name]
+        best = min(times, key=times.get)
+        bnd = _sweep_bound_ms(op, layout, args)
+        model = ("modeled bound null" if bnd is None else
+                 f"modeled bound {bnd:.4f} ms, the winner at "
+                 f"{100 * bnd / times[won]:.1f}% of it")
+        log(f"autotune: sweep: {op} ({layout}) {name} at {size} "
+            f"(size class {autotune.size_class(size)}): "
+            + ", ".join(f"{v} {ms:.4f} ms" for v, ms in times.items())
+            + f"; fastest {best} ({times[best] / times[fb]:.3f} of the "
+              f"fallback's); winner {won} ({times[won]:.4f} ms), fallback "
+              f"{fb} ({times[fb]:.4f} ms); {model}")
+    sweep_s = time.perf_counter() - t0
+    driven = autotune.drive_count() - drives
+    if driven != expected:
+        fail(f"autotune: the sweep drove {driven} candidates, not "
+             f"{expected}")
+    winners = {cell: autotune.tuned_params(
+        cell[0], p=P, layout=cell[1],
+        size=autotune.work_size(cell[0], inputs[cell[1]][cell[0]]))
+        for cell in cells}
+    for op, layout in cells:
+        if autotune.sweep(op, p=P, impl="cuda", layout=layout,
+                          inputs=inputs[layout][op]) != winners[(op, layout)]:
+            fail(f"autotune: a second sweep of {op} ({layout}) changed its "
+                 f"winner")
+    if autotune.drive_count() - drives != expected:
+        fail("autotune: a second sweep drove candidates")
+    del inputs, routing
+    log(f"autotune: swept {len(cells)} cells, {driven} candidates driven in "
+        f"{sweep_s:.1f} s (device {autotune.device_kind()}); a second sweep "
+        f"drove none; winners "
+        + ", ".join(f"{op} ({layout}) {w}" for (op, layout), w in
+                    winners.items()))
+
+    # 2. phase 4 held every candidate of every cell against its plain result
+    missing = [cell for cell in cells if cell not in CANDIDATES]
+    if missing:
+        fail(f"autotune: candidates never held against the plain versions: "
+             f"{missing}")
+    log(f"autotune: phase 4 held {expected} candidates of {len(cells)} cells "
+        f"against the plain versions bit for bit in "
+        f"{sum(CANDIDATES.values()):.1f} s")
+
+    # 3. the main path's queries with the winners, both layouts
+    _build.reset_launch_counts()
+    for label, e in (("byte", eng), ("packed", peng)):
+        got = queries(e)
+        for name, (ans, s) in got.items():
+            base, base_s = fallback[label][name]
+            if not _same_answers(np, ans, base):
+                fail(f"autotune: {name} ({label}) with the winners differs "
+                     f"from the fallback's answer")
+            first = (f", phase 5 {secs[name]:.3f} s" if label == "byte"
+                     else "")
+            log(f"autotune: main path ({label}) with the winners: {name}: "
+                f"{s:.3f} s (fallback {base_s:.3f} s{first}), equal bit for "
+                f"bit")
+    counts = _build.launch_counts()
+    idle = [k for k in ("hll_estimate_stats", "hll_propagate",
+                        "intersection_stats", "union_estimate_stats")
+            for k in (k, k + "_packed") if counts[k] == 0]
+    if idle:
+        fail(f"autotune: the winners' queries never launched {idle}")
+
+    # 4. back to the fallback shapes for every later phase
+    autotune.clear_cache()
+    if autotune._CACHE:
+        fail("autotune: the cache still holds winners")
+    log(f"autotune: phase 4t {time.perf_counter() - t_phase:.1f} s; cache "
+        f"cleared, later phases on the fallback shapes")
+
+
 def main_path(torch, np, edges, n, pairs, verts, sets, panel):
     """Phase 5: the port's main path through its entry points."""
     from repro_torch import engine
@@ -1059,12 +1371,14 @@ def main_path(torch, np, edges, n, pairs, verts, sets, panel):
 
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
+    step_secs = {}
 
     def step(name, fn, extra=lambda out: ""):
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
+        step_secs[name] = secs
         log(f"main: {name}: {secs:.3f} s, max_memory_allocated "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, "
             f"launches {_build.launch_counts()}{extra(out)}")
@@ -1136,6 +1450,10 @@ def main_path(torch, np, edges, n, pairs, verts, sets, panel):
     if missing:
         fail(f"main-path kernels never launched: {missing}")
     overflow_share(torch, eng, pairs)
+    autotune_phase(torch, np, eng, edges, n, pairs, sets, {
+        "degrees": deg, "neighborhood": (loc, glob),
+        "intersection_size": est, "union_size": uni, "query_batch": batch},
+        step_secs)
     return counts, deg, (loc, glob)
 
 

@@ -8,7 +8,13 @@ Run it from a checkout's root. ``csrc/intersection_stats.cu`` and
 script compiles each source once per entry of its variant table (the
 constants replaced in a copy under ``build/pairsets_sweep/``, one
 ``nvcc`` per copy, all started together, ``nvcc``'s register and spill
-report kept beside each library; ``sweep_rowstats.build_variants``).
+report kept beside each library; ``sweep_rowstats.build_variants``),
+every launcher at its op's fallback block. The sets a block of the union
+kernel and the most pairs a warp of the pair kernel are launch arguments
+(``set_block`` and ``pair_block``, once the constants ``kWarps`` and
+``kMaxPairsPerWarp``): their candidates are timed by
+``kernels.autotune.sweep`` at every shape below
+(``sweep_propagate.autotune_times``).
 ``BASELINE_TREE``, the root of another checkout (for example the parent
 commit unpacked with ``git archive`` under ``build/``), adds that tree's
 two sources as the variant ``baseline`` and that tree's two wrappers as
@@ -38,7 +44,7 @@ is the host clock's median around the call alone (the launcher's ctypes
 call and launch, or the whole wrapper), a CPU time. The
 share of zero registers in the pairs' rows (from ``sz[:, :, 1]``), the
 bytes bound of each shape (each input byte read once, each output byte
-written once, over 3.35 TB/s) and the time per member row of the set
+written once, over the H100's 3.35 TB/s, ``analysis.roofline.HW``) and the time per member row of the set
 shapes are printed beside the times.
 
 Prints the card's name and power limit, then one JSON line. Exits
@@ -53,11 +59,11 @@ import subprocess
 import sys
 import time
 
-from sweep_rowstats import build_variants
+from sweep_propagate import autotune_times
+from sweep_rowstats import build_variants, call
 
 REPS = 15
 SCALE, EDGE_FACTOR, SEED, P = 22, 16, 0, 8
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (data sheet)
 FLUSH_BYTES = 64 << 20     # more than the H100's 50 MB L2
 #: source -> {variant: {constant: value}}; {} is the source as is
 VARIANTS = {
@@ -73,8 +79,6 @@ VARIANTS = {
         "members2": {"kMembers": "2"},
         "members8": {"kMembers": "8"},
         "ahead1": {"kAhead": "1"},
-        "warps4": {"kWarps": "4"},
-        "warps16": {"kWarps": "16"},
         "shared": {"kOwnWindows": "0"},
         "owned": {"kOwnWindows": "1024"},
         "min_blocks8_members2": {"kMinBlocks": "8", "kMembers": "2"},
@@ -117,7 +121,7 @@ def wrapper_host_steps(torch, regs, sets, dev, wrappers, reps: int = 300):
     shape (a), the steps that every wrapper of the port takes, and of each
     tree's whole wrapper (``wrappers``: name -> (pair, set) modules)."""
     from repro_torch.engine import plans
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, autotune
     ids_np, mask_np = plans.pad_sets(sets)
     ids = torch.from_numpy(ids_np).to(dev)
     mask = torch.from_numpy(mask_np).to(dev)
@@ -125,6 +129,7 @@ def wrapper_host_steps(torch, regs, sets, dev, wrappers, reps: int = 300):
     out = torch.empty((ids.shape[0], 2), dtype=torch.float32, device=dev)
     args = (regs.data_ptr(), ids.data_ptr(), mask.data_ptr(), out.data_ptr(),
             ids.shape[0], regs.shape[0], ids.shape[1], regs.shape[1],
+            autotune.FALLBACK["union_estimate"]["set_block"],
             torch.cuda.current_stream().cuda_stream)
 
     def device_context():
@@ -171,6 +176,7 @@ def main(edges_path: str, baseline: str | None) -> int:
         return 2
     from chip_smoke import neighbor_sets
     from repro_torch import engine
+    from repro_torch.analysis.roofline import HW
     from repro_torch.core.hll import HLLConfig
     from repro_torch.engine import plans
     from repro_torch.graph import generators
@@ -225,7 +231,7 @@ def main(edges_path: str, baseline: str | None) -> int:
         n_bytes = (torch.unique(ids).numel() * w + 8 * b
                    + 4 * b * (5 * (q + 2) + 6))
         info = {"pairs": b, "zero_share_a_b_union": zeros,
-                "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+                "bound_ms": n_bytes / HW().hbm_bw * 1e3}
         return {
             "source": "intersection_stats.cu",
             "kernel": _build.kernel_name("intersection_stats", layout),
@@ -233,7 +239,8 @@ def main(edges_path: str, baseline: str | None) -> int:
             "check": lambda: check(stats, sz),
             "call": lambda mod: mod[0].intersection_stats(regs, pa, pb, q,
                                                           layout=layout),
-            "check_call": lambda out: check(*out), "info": info}
+            "check_call": lambda out: check(*out), "info": info,
+            "op": "intersection_stats", "inputs": (regs, ids)}
 
     def set_case(sets, layout):
         regs = panels[layout]
@@ -255,7 +262,7 @@ def main(edges_path: str, baseline: str | None) -> int:
         n_bytes = (np.unique(ids_np[mask_np]).size * w + 5 * ids_np.size
                    + 8 * b)
         info = {"panel": list(ids_np.shape), "members": members,
-                "bound_ms": n_bytes / HBM_BYTES_PER_S * 1e3}
+                "bound_ms": n_bytes / HW().hbm_bw * 1e3}
         return {
             "source": "union_estimate.cu",
             "kernel": _build.kernel_name("union_estimate_stats", layout),
@@ -263,7 +270,8 @@ def main(edges_path: str, baseline: str | None) -> int:
             "check": lambda: check(out),
             "call": lambda mod: mod[1].union_estimate_stats(
                 regs, ids, mask, layout=layout),
-            "check_call": check, "info": info}
+            "check_call": check, "info": info,
+            "op": "union_estimate", "inputs": (regs, ids, mask)}
 
     cases = {}
     for layout in ("byte", "packed"):
@@ -290,7 +298,7 @@ def main(edges_path: str, baseline: str | None) -> int:
                 if is_wrapper:
                     out = case["call"](what)
                 else:
-                    err = getattr(what, case["kernel"])(*case["args"])
+                    err = call(what, case["kernel"], case["args"])
                 host_us = (time.perf_counter() - t0) * 1e6
                 end.record()
                 if not is_wrapper and err != 0:
@@ -310,6 +318,8 @@ def main(edges_path: str, baseline: str | None) -> int:
     torch.cuda.synchronize()
     host = wrapper_host_steps(torch, panels["byte"], main_sets, dev,
                               wrappers)
+    blocks = autotune_times([(c["op"], key.split()[1], key, c["inputs"])
+                             for key, c in cases.items()])
     results = {}
     for key, per in times.items():
         info = cases[key]["info"]
@@ -337,7 +347,7 @@ def main(edges_path: str, baseline: str | None) -> int:
         print(f"host: {step}: {us:.2f} us", flush=True)
     print(json.dumps({"card": card, "reps": REPS, "host_us": host,
                       "cases": {k: c["info"] for k, c in cases.items()},
-                      "results": results}))
+                      "results": results, "autotune": blocks}))
     return 0
 
 

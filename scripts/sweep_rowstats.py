@@ -7,15 +7,18 @@ Run it from a checkout's root. ``csrc/hll_estimate.cu`` and
 ``csrc/hip_delta.cu`` hold their design choices as constants: the load
 width ``kVecBytes``, the loads of its row a lane has in flight
 ``kLoads`` (which sets the lanes per row: a p=8 row of 16 vectors takes
-16 / kLoads lanes), the block size ``kThreads`` and the persistent
-grid's ``kBlocksPerSM``. This script compiles each source once per entry
-of its variant table (the constants replaced in a copy under
-``build/rowstats_sweep/``, each copy built by its own ``nvcc``, all
-started together; ``nvcc``'s register and spill report kept beside each
-library). ``BASELINE_TREE``, the root of another checkout (for example
-the parent commit unpacked with ``git archive`` under ``build/``), adds
-that tree's two sources as the variant ``baseline``, the old design
-beside the new.
+16 / kLoads lanes) and the persistent grid's ``kBlocksPerSM``. This
+script compiles each source once per entry of its variant table (the
+constants replaced in a copy under ``build/rowstats_sweep/``, each copy
+built by its own ``nvcc``, all started together; ``nvcc``'s register and
+spill report kept beside each library); every launcher runs at its op's
+fallback block size. The block size is a launch argument (the op's
+``row_block``, once the constant ``kThreads``): its candidates are timed
+by ``kernels.autotune.sweep`` at each of the shapes below, one line a
+shape (``sweep_propagate.autotune_times``). ``BASELINE_TREE``, the root
+of another checkout (for example the parent commit unpacked with ``git
+archive`` under ``build/``), adds that tree's two sources as the variant
+``baseline``, the old design beside the new.
 
 Shapes are the main path's: the scale-22 graph (RMAT, edge factor 16,
 seed 0, cached at ``EDGES_NPY`` by the first run, as
@@ -42,11 +45,15 @@ import statistics
 import subprocess
 import sys
 
-from sweep_propagate import variant_source
+from sweep_propagate import autotune_times, takes_knob, variant_source
 
 REPS = 15
 SCALE, EDGE_FACTOR, SEED, P = 22, 16, 0, 8
 TRIANGLE_BLOCK = 1 << 18
+#: source -> the autotune op whose block its launchers take
+SOURCE_OP = {"hll_estimate.cu": "estimate", "hip_delta.cu": "hip_delta",
+             "intersection_stats.cu": "intersection_stats",
+             "union_estimate.cu": "union_estimate"}
 #: source -> {variant: {constant: value}}; {} is the source as is
 VARIANTS = {
     "hll_estimate.cu": {
@@ -57,8 +64,6 @@ VARIANTS = {
         "vec8": {"kVecBytes": "8"},
         "blocks2": {"kBlocksPerSM": "2"},
         "blocks4": {"kBlocksPerSM": "4"},
-        "threads128": {"kThreads": "128"},
-        "threads256": {"kThreads": "256"},
     },
     "hip_delta.cu": {
         "as_is": {},
@@ -68,8 +73,6 @@ VARIANTS = {
         "vec8": {"kVecBytes": "8"},
         "blocks2": {"kBlocksPerSM": "2"},
         "blocks4": {"kBlocksPerSM": "4"},
-        "threads128": {"kThreads": "128"},
-        "threads512": {"kThreads": "512"},
     },
 }
 LAUNCHERS = {"hll_estimate.cu": ("hll_estimate_stats",
@@ -77,29 +80,49 @@ LAUNCHERS = {"hll_estimate.cu": ("hll_estimate_stats",
              "hip_delta.cu": ("hip_delta_rows",)}
 
 
+def call(lib_block, kernel: str, args: tuple) -> int:
+    """Launcher ``kernel`` of ``lib_block`` (a ``build_variants`` entry)
+    on ``args`` (stream last, no block argument), with the op's fallback
+    block put before the stream when its launcher takes one."""
+    lib, block = lib_block
+    fn = getattr(lib, kernel)
+    if block is None:
+        return fn(*args)
+    return fn(*args[:-1], block, args[-1])
+
+
 def build_variants(root: str, baseline: str | None, variants_of=VARIANTS,
                    launchers=LAUNCHERS, out_dir: str = "rowstats_sweep",
-                   ) -> dict[str, dict[str, ctypes.CDLL]]:
-    """{source: {variant: library}} for the table ``variants_of`` (source
-    -> {variant: constants}), every library compiled together under
-    ``build/<out_dir>/`` (``_build.compile_library``; each report kept
-    beside its library)."""
+                   ) -> dict[str, dict[str, tuple]]:
+    """{source: {variant: (library, block)}} for the table
+    ``variants_of`` (source -> {variant: constants}), every library
+    compiled together under ``build/<out_dir>/``
+    (``_build.compile_library``; each report kept beside its library).
+    ``block`` is the launcher argument the variant runs with: the op's
+    fallback, or ``None`` for a baseline whose launchers take none."""
     from concurrent.futures import ThreadPoolExecutor
     from pathlib import Path
 
-    from repro_torch.kernels import _build
+    from repro_torch.kernels import _build, autotune
     out = Path(root, "build", out_dir)
     shutil.rmtree(out, ignore_errors=True)
-    jobs = {}
+    jobs, blocks = {}, {}
     for source, variants in variants_of.items():
         csrc = Path(root, "src", "repro_torch", "csrc")
-        texts = {name: variant_source((csrc / source).read_text(), consts)
-                 for name, consts in variants.items()}
+        (fallback,) = autotune.FALLBACK[SOURCE_OP[source]].values()
+        texts = {}
+        for name, consts in variants.items():
+            blocks[(source, name)] = fallback
+            texts[name] = variant_source((csrc / source).read_text(),
+                                         consts)
         dirs = {name: csrc for name in variants}
         if baseline is not None:
             old = Path(baseline, "src", "repro_torch", "csrc")
             texts["baseline"] = (old / source).read_text()
             dirs["baseline"] = old
+            blocks[(source, "baseline")] = (
+                blocks[(source, "as_is")] if takes_knob(
+                    texts["baseline"], launchers[source][0]) else None)
         for name, text in texts.items():
             d = out / f"{Path(source).stem}_{name}"
             d.mkdir(parents=True)
@@ -110,15 +133,19 @@ def build_variants(root: str, baseline: str | None, variants_of=VARIANTS,
         logs = dict(zip(jobs, pool.map(
             lambda sl: _build.compile_library([sl[0]], sl[1]),
             jobs.values())))
-    libs: dict[str, dict[str, ctypes.CDLL]] = {s: {} for s in variants_of}
+    libs: dict[str, dict[str, tuple]] = {s: {} for s in variants_of}
     for (source, name), (_, path) in jobs.items():
         path.with_suffix(".log").write_text(logs[(source, name)])
         lib = ctypes.CDLL(str(path))
+        block = blocks[(source, name)]
         for kernel in launchers[source]:
             fn = getattr(lib, kernel)
-            fn.argtypes = list(_build.KERNELS[kernel])
+            types = list(_build.KERNELS[kernel])
+            if block is None:
+                types.pop(-2)  # an older launcher has no block argument
+            fn.argtypes = types
             fn.restype = ctypes.c_int
-        libs[source][name] = lib
+        libs[source][name] = (lib, block)
     return libs
 
 
@@ -185,11 +212,10 @@ def main(edges_path: str, baseline: str | None) -> int:
     for rep in range(REPS + 1):  # round 0 warms up and checks
         for key, (kernel, args, check) in cases.items():
             for variant, lib in libs[key[0]].items():
-                fn = getattr(lib, kernel)
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
-                err = fn(*args)
+                err = call(lib, kernel, args)
                 end.record()
                 if err != 0:
                     raise SystemExit(f"{kernel} variant {variant}: "
@@ -212,12 +238,18 @@ def main(edges_path: str, baseline: str | None) -> int:
             print(f"{key[0]} {key[1]} / {variant}: median "
                   f"{statistics.median(ms):.4f} ms, min {min(ms):.4f} ms "
                   f"over {REPS}", flush=True)
+    blocks = autotune_times([
+        ("estimate", "byte", "4194304 rows", (byte,)),
+        ("estimate", "byte", "262144 rows", (block,)),
+        ("estimate", "packed", "4194304 rows", (packed,)),
+        ("hip_delta", "byte", "D^1 -> D^2", (byte, nxt))])
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(card)
-    print(json.dumps({"card": card, "results": results}))
+    print(json.dumps({"card": card, "results": results,
+                      "autotune": blocks}))
     return 0
 
 

@@ -270,13 +270,16 @@ inline unsigned int grid_for(int64_t work, int threads) {
 template <auto kKernel>
 unsigned int persistent_grid(int threads, int64_t blocks, int per_sm,
                              size_t smem = 0) {
-  // what fits, cached for the last shared-memory size asked
+  // what fits, cached for the last (threads, shared memory) asked: both
+  // are launch arguments of a tuned kernel
+  static thread_local int fit_threads = 0;
   static thread_local size_t fit_smem = ~size_t{0};
   static thread_local int fit = 1;
-  if (smem != fit_smem) {
+  if (threads != fit_threads || smem != fit_smem) {
     int f = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&f, kKernel, threads, smem);
     fit = f < 1 ? 1 : f;
+    fit_threads = threads;
     fit_smem = smem;
   }
   int dev = 0, sms = 0;

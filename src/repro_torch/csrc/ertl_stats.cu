@@ -13,8 +13,11 @@
 // output dominates; each register costs a few integer operations and at
 // most two shared-memory atomics.
 //
-// Design: one warp per pair, eight pairs per block, as intersection_stats
-// but on rows the caller has already gathered. Each lane reads both rows
+// Design: one warp per pair, kWarps pairs per block (the launcher's
+// `pair_block`, 4, 8, 16 or 32; each is its own instantiation, so the
+// pair index stays compile-time arithmetic; kernels/autotune.py holds the
+// default, 8, and the sweep), as intersection_stats but on rows the
+// caller has already gathered. Each lane reads both rows
 // a 32-bit word at a time (the wrapper guarantees r >= 8 and 8-byte
 // aligned panels), counts each register pair into a 5*(q+2) slice of
 // shared-memory integer histograms (repro::eq19_add, shared with
@@ -28,10 +31,9 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-
-// width: bytes per row (r, or r / 2 packed), a power of two >= 8.
-template <bool kPacked>
+// width: bytes per row (r, or r / 2 packed), a power of two >= 8; kWarps:
+// pairs a block, one a warp.
+template <bool kPacked, int kWarps>
 __global__ void ertl_stats_kernel(const uint8_t* __restrict__ a,
                                   const uint8_t* __restrict__ b,
                                   float* __restrict__ stats, int64_t n_pairs,
@@ -62,28 +64,53 @@ __global__ void ertl_stats_kernel(const uint8_t* __restrict__ a,
   for (int i = lane; i < hsize; i += 32) out[i] = static_cast<float>(hist[i]);
 }
 
-template <bool kPacked>
+template <bool kPacked, int kWarps>
 int launch(const uint8_t* a, const uint8_t* b, float* stats, int64_t n_pairs,
            int width, int q, cudaStream_t stream) {
-  if (n_pairs == 0) return 0;
+  // at most 32 x 5 x 65 ints (q <= 63): under the 48 KB default
   const size_t smem = static_cast<size_t>(kWarps) * 5 * (q + 2) * sizeof(int);
   const int64_t blocks = (n_pairs + kWarps - 1) / kWarps;
-  ertl_stats_kernel<kPacked>
+  ertl_stats_kernel<kPacked, kWarps>
       <<<static_cast<unsigned int>(blocks), kWarps * 32, smem, stream>>>(
           a, b, stats, n_pairs, width, q);
   return static_cast<int>(cudaGetLastError());
 }
 
+// pair_block: pairs a block, 4, 8, 16 or 32 (cudaErrorInvalidValue
+// otherwise, nothing launched).
+template <bool kPacked>
+int launch_any(const uint8_t* a, const uint8_t* b, float* stats,
+               int64_t n_pairs, int width, int q, int pair_block,
+               cudaStream_t stream) {
+  if (pair_block != 4 && pair_block != 8 && pair_block != 16 &&
+      pair_block != 32)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_pairs == 0) return 0;
+  switch (pair_block) {
+    case 4:
+      return launch<kPacked, 4>(a, b, stats, n_pairs, width, q, stream);
+    case 8:
+      return launch<kPacked, 8>(a, b, stats, n_pairs, width, q, stream);
+    case 16:
+      return launch<kPacked, 16>(a, b, stats, n_pairs, width, q, stream);
+    default:
+      return launch<kPacked, 32>(a, b, stats, n_pairs, width, q, stream);
+  }
+}
+
 }  // namespace
 
+// pair_block: pairs a block, 4, 8, 16 or 32.
 extern "C" int ertl_stats(const uint8_t* a, const uint8_t* b, float* stats,
-                          int64_t n_pairs, int r, int q, cudaStream_t stream) {
-  return launch<false>(a, b, stats, n_pairs, r, q, stream);
+                          int64_t n_pairs, int r, int q, int pair_block,
+                          cudaStream_t stream) {
+  return launch_any<false>(a, b, stats, n_pairs, r, q, pair_block, stream);
 }
 
 // r: registers per row; the packed rows are r / 2 bytes (r >= 16).
 extern "C" int ertl_stats_packed(const uint8_t* a, const uint8_t* b,
                                  float* stats, int64_t n_pairs, int r, int q,
-                                 cudaStream_t stream) {
-  return launch<true>(a, b, stats, n_pairs, r >> 1, q, stream);
+                                 int pair_block, cudaStream_t stream) {
+  return launch_any<true>(a, b, stats, n_pairs, r >> 1, q, pair_block,
+                          stream);
 }

@@ -13,7 +13,10 @@
 // Design: a group of g lanes per row, each lane issuing kLoads 16-byte
 // loads of each panel before it adds any (p=8: 8 lanes x 32 bytes of
 // each panel, 4 rows a warp), a persistent grid of at most kBlocksPerSM
-// resident blocks per SM striding over row groups. Per 16-byte vector:
+// resident blocks per SM striding over row groups. The block size is the
+// launcher's `threads`, 128, 256 or 512; it caps the registers through
+// __launch_bounds__, so each is its own instantiation (kernels/autotune.py
+// holds the default, 256, and the sweep). Per 16-byte vector:
 // * fast path, when all its prev bytes are below 30 (a carry-free add a
 //   word tests it), per 32-bit word pair: the grew mask of the four bytes
 //   comes from one carry-free subtraction, a byte that did not grow gets
@@ -40,7 +43,6 @@ namespace {
 // Design constants, swept on the card by scripts/sweep_rowstats.py.
 constexpr int kVecBytes = 16;    // load width (8 where alignment forbids 16)
 constexpr int kLoads = 2;        // loads of each panel a lane has in flight
-constexpr int kThreads = 256;
 constexpr int kBlocksPerSM = 8;  // persistent grid
 
 // Fast path of one word pair whose prev bytes are all below 30: the sum
@@ -100,8 +102,9 @@ __device__ __forceinline__ void add_vec(const typename repro::Vec<kVec>::T& a,
   }
 }
 
-// row_vecs: kVec-byte vectors per row; g = 1 << g_log2 lanes per row.
-template <int kVec>
+// row_vecs: kVec-byte vectors per row; g = 1 << g_log2 lanes per row;
+// kThreads: the block size.
+template <int kVec, int kThreads>
 __global__ void __launch_bounds__(kThreads)
     hip_delta_kernel(const uint8_t* __restrict__ prev,
                      const uint8_t* __restrict__ cur, float* __restrict__ out,
@@ -161,28 +164,47 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int kVec>
+template <int kVec, int kThreads>
 int launch(const uint8_t* prev, const uint8_t* cur, float* out,
            int64_t n_rows, int r, cudaStream_t stream) {
   const int row_vecs = r / kVec;
   const int g_log2 = repro::group_log2(row_vecs, kLoads);
   const int64_t rows_per_block = (kThreads / 32) * (32 >> g_log2);
-  const unsigned int blocks = repro::persistent_grid<hip_delta_kernel<kVec>>(
-      kThreads, (n_rows + rows_per_block - 1) / rows_per_block, kBlocksPerSM);
-  hip_delta_kernel<kVec><<<blocks, kThreads, 0, stream>>>(
+  const unsigned int blocks =
+      repro::persistent_grid<hip_delta_kernel<kVec, kThreads>>(
+          kThreads, (n_rows + rows_per_block - 1) / rows_per_block,
+          kBlocksPerSM);
+  hip_delta_kernel<kVec, kThreads><<<blocks, kThreads, 0, stream>>>(
       prev, cur, out, n_rows, row_vecs, g_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-extern "C" int hip_delta_rows(const uint8_t* prev, const uint8_t* cur,
-                              float* out, int64_t n_rows, int r,
-                              cudaStream_t stream) {
-  if (n_rows == 0) return 0;
+template <int kThreads>
+int launch_any(const uint8_t* prev, const uint8_t* cur, float* out,
+               int64_t n_rows, int r, cudaStream_t stream) {
   const bool wide = kVecBytes == 16 && r % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(prev) % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(cur) % 16 == 0;
-  return wide ? launch<16>(prev, cur, out, n_rows, r, stream)
-              : launch<8>(prev, cur, out, n_rows, r, stream);
+  return wide ? launch<16, kThreads>(prev, cur, out, n_rows, r, stream)
+              : launch<8, kThreads>(prev, cur, out, n_rows, r, stream);
+}
+
+}  // namespace
+
+// threads: the block size, 128, 256 or 512 (cudaErrorInvalidValue
+// otherwise, nothing launched).
+extern "C" int hip_delta_rows(const uint8_t* prev, const uint8_t* cur,
+                              float* out, int64_t n_rows, int r, int threads,
+                              cudaStream_t stream) {
+  if (threads != 128 && threads != 256 && threads != 512)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows == 0) return 0;
+  switch (threads) {
+    case 128:
+      return launch_any<128>(prev, cur, out, n_rows, r, stream);
+    case 256:
+      return launch_any<256>(prev, cur, out, n_rows, r, stream);
+    default:
+      return launch_any<512>(prev, cur, out, n_rows, r, stream);
+  }
 }

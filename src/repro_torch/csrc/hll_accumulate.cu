@@ -16,8 +16,12 @@
 // Design: the TPU kernel walks the edge block sequentially because the TPU
 // has no atomics. Here the engine hands one launch a whole ingest chunk
 // (millions of directed edges), and each thread carries kEdgesPerThread of
-// them: a warp takes a tile of 32 * kEdgesPerThread edges, lane l edge
-// k * 32 + l of the tile, so every load is coalesced. A thread loads all
+// them: a warp takes a tile of kTile = 32 * kEdgesPerThread edges, lane l
+// edge k * 32 + l of the tile, so every load is coalesced. The tile is the
+// launcher's `edge_block`, one of 64, 128, 256 and 512 (2 to 16 edges a
+// thread): it sizes the unrolled register arrays, so each is its own
+// instantiation (kernels/autotune.py holds the default, 128, and the
+// sweep). A thread loads all
 // its ids and keys, hashes them in registers, and issues all its register
 // word reads before any compare-and-swap, so several round trips are in
 // flight per thread. CUDA has no 8-bit atomicMax, so the byte max is a
@@ -41,13 +45,12 @@
 
 namespace {
 
-constexpr int kEdgesPerThread = 4;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int64_t kTile = 32 * kEdgesPerThread;
 
-// mask may be null: every edge is live.
-template <bool kPacked>
+// mask may be null: every edge is live. kEdgesPerThread: edges a lane
+// carries, so a warp's tile is 32 * kEdgesPerThread edges.
+template <bool kPacked, int kEdgesPerThread>
 __global__ void __launch_bounds__(kThreads)
     hll_accumulate_kernel(uint32_t* __restrict__ regs,
                           const int32_t* __restrict__ rows,
@@ -55,6 +58,7 @@ __global__ void __launch_bounds__(kThreads)
                           const bool* __restrict__ mask, int64_t n_edges,
                           int64_t n_rows, int p, uint32_t s_hi,
                           uint32_t s_lo) {
+  constexpr int64_t kTile = 32 * kEdgesPerThread;
   __shared__ uint32_t stage[kWarps][32];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -122,29 +126,60 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kPacked>
-int launch(uint8_t* regs, const int32_t* rows, const uint32_t* keys,
-           const bool* mask, int64_t n_edges, int64_t n_rows, int p,
-           uint32_t s_hi, uint32_t s_lo, cudaStream_t stream) {
-  if (n_edges == 0) return 0;
+template <bool kPacked, int kEdgesPerThread>
+void launch_tile(uint8_t* regs, const int32_t* rows, const uint32_t* keys,
+                 const bool* mask, int64_t n_edges, int64_t n_rows, int p,
+                 uint32_t s_hi, uint32_t s_lo, cudaStream_t stream) {
+  constexpr int64_t kTile = 32 * kEdgesPerThread;
   const int64_t n_tiles = (n_edges + kTile - 1) / kTile;
-  hll_accumulate_kernel<kPacked>
+  hll_accumulate_kernel<kPacked, kEdgesPerThread>
       <<<repro::grid_for(n_tiles * 32, kThreads), kThreads, 0, stream>>>(
           reinterpret_cast<uint32_t*>(regs), rows, keys, mask, n_edges,
           n_rows, p, s_hi, s_lo);
+}
+
+// edge_block: a warp's tile, 64, 128, 256 or 512 edges
+// (cudaErrorInvalidValue otherwise, nothing launched).
+template <bool kPacked>
+int launch(uint8_t* regs, const int32_t* rows, const uint32_t* keys,
+           const bool* mask, int64_t n_edges, int64_t n_rows, int p,
+           uint32_t s_hi, uint32_t s_lo, int edge_block,
+           cudaStream_t stream) {
+  if (edge_block != 64 && edge_block != 128 && edge_block != 256 &&
+      edge_block != 512)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_edges == 0) return 0;
+  switch (edge_block) {
+    case 64:
+      launch_tile<kPacked, 2>(regs, rows, keys, mask, n_edges, n_rows, p,
+                              s_hi, s_lo, stream);
+      break;
+    case 128:
+      launch_tile<kPacked, 4>(regs, rows, keys, mask, n_edges, n_rows, p,
+                              s_hi, s_lo, stream);
+      break;
+    case 256:
+      launch_tile<kPacked, 8>(regs, rows, keys, mask, n_edges, n_rows, p,
+                              s_hi, s_lo, stream);
+      break;
+    default:
+      launch_tile<kPacked, 16>(regs, rows, keys, mask, n_edges, n_rows, p,
+                               s_hi, s_lo, stream);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// mask: bool[n_edges], or null when every edge is live.
+// mask: bool[n_edges], or null when every edge is live; edge_block: a
+// warp's tile of edges, 64, 128, 256 or 512.
 extern "C" int hll_accumulate(uint8_t* regs, const int32_t* rows,
                               const uint32_t* keys, const bool* mask,
                               int64_t n_edges, int64_t n_rows, int p,
-                              uint32_t s_hi, uint32_t s_lo,
+                              uint32_t s_hi, uint32_t s_lo, int edge_block,
                               cudaStream_t stream) {
   return launch<false>(regs, rows, keys, mask, n_edges, n_rows, p, s_hi,
-                       s_lo, stream);
+                       s_lo, edge_block, stream);
 }
 
 // The panel is uint8[n_rows, 2^(p-1)]; p >= 4 (the wrapper checks).
@@ -152,9 +187,9 @@ extern "C" int hll_accumulate_packed(uint8_t* regs, const int32_t* rows,
                                      const uint32_t* keys, const bool* mask,
                                      int64_t n_edges, int64_t n_rows, int p,
                                      uint32_t s_hi, uint32_t s_lo,
-                                     cudaStream_t stream) {
+                                     int edge_block, cudaStream_t stream) {
   return launch<true>(regs, rows, keys, mask, n_edges, n_rows, p, s_hi, s_lo,
-                      stream);
+                      edge_block, stream);
 }
 
 extern "C" const char* repro_error_string(int err) {

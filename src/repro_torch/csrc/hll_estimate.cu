@@ -14,7 +14,9 @@
 // Design: a group of g lanes per row, each lane issuing kLoads 16-byte
 // loads of its row before it reduces any (p=8: 4 lanes x 64 bytes, 8 rows
 // a warp), a persistent grid of at most kBlocksPerSM resident blocks per
-// SM striding over row groups, log2(g) shuffle levels per row and one
+// SM striding over row groups (the block size is the launcher's
+// `threads`, 128, 256 or 512, read from blockDim in the kernel;
+// kernels/autotune.py holds the default, 512, and the sweep), log2(g) shuffle levels per row and one
 // float2 store. Per 32-bit word (repro::add_vec_stats, shared with the
 // pair and set kernels):
 // * z counts the nonzero bytes with one carry-free add and a popcount;
@@ -47,13 +49,13 @@ namespace {
 // Design constants, swept on the card by scripts/sweep_rowstats.py.
 constexpr int kVecBytes = 16;    // load width (8 where alignment forbids 16)
 constexpr int kLoads = 4;        // loads of its row a lane has in flight
-constexpr int kThreads = 512;
+constexpr int kMaxThreads = 512;  // the largest block the launcher takes
 constexpr int kBlocksPerSM = 8;  // persistent grid
 
 // row_vecs: kVec-byte vectors per row; g = 1 << g_log2 lanes per row;
 // regs_per_row: registers per row (the zero count is regs_per_row - nz).
 template <bool kPacked, int kVec>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kMaxThreads)
     estimate_kernel(const uint8_t* __restrict__ regs, float2* __restrict__ out,
                     int64_t n_rows, int row_vecs, int g_log2,
                     int regs_per_row) {
@@ -108,42 +110,48 @@ __global__ void __launch_bounds__(kThreads)
 
 template <bool kPacked, int kVec>
 int launch(const uint8_t* regs, float* out, int64_t n_rows, int row_bytes,
-           int regs_per_row, cudaStream_t stream) {
+           int regs_per_row, int threads, cudaStream_t stream) {
   const int row_vecs = row_bytes / kVec;
   const int g_log2 = repro::group_log2(row_vecs, kLoads);
-  const int64_t rows_per_block = (kThreads / 32) * (32 >> g_log2);
+  const int64_t rows_per_block = (threads / 32) * (32 >> g_log2);
   const unsigned int blocks =
       repro::persistent_grid<estimate_kernel<kPacked, kVec>>(
-          kThreads, (n_rows + rows_per_block - 1) / rows_per_block,
+          threads, (n_rows + rows_per_block - 1) / rows_per_block,
           kBlocksPerSM);
-  estimate_kernel<kPacked, kVec><<<blocks, kThreads, 0, stream>>>(
+  estimate_kernel<kPacked, kVec><<<blocks, threads, 0, stream>>>(
       regs, reinterpret_cast<float2*>(out), n_rows, row_vecs, g_log2,
       regs_per_row);
   return static_cast<int>(cudaGetLastError());
 }
 
+// threads: the block size, 128, 256 or 512 (cudaErrorInvalidValue
+// otherwise, nothing launched).
 template <bool kPacked>
 int launch_any(const uint8_t* regs, float* out, int64_t n_rows, int row_bytes,
-               int regs_per_row, cudaStream_t stream) {
+               int regs_per_row, int threads, cudaStream_t stream) {
+  if (threads != 128 && threads != 256 && threads != kMaxThreads)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_rows == 0) return 0;
   const bool wide = kVecBytes == 16 && row_bytes % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(regs) % 16 == 0;
   return wide ? launch<kPacked, 16>(regs, out, n_rows, row_bytes,
-                                    regs_per_row, stream)
+                                    regs_per_row, threads, stream)
               : launch<kPacked, 8>(regs, out, n_rows, row_bytes, regs_per_row,
-                                   stream);
+                                   threads, stream);
 }
 
 }  // namespace
 
+// threads: the block size, 128, 256 or 512.
 extern "C" int hll_estimate_stats(const uint8_t* regs, float* out,
-                                  int64_t n_rows, int r, cudaStream_t stream) {
-  return launch_any<false>(regs, out, n_rows, r, r, stream);
+                                  int64_t n_rows, int r, int threads,
+                                  cudaStream_t stream) {
+  return launch_any<false>(regs, out, n_rows, r, r, threads, stream);
 }
 
 // r: registers per row; the packed row is r / 2 bytes (r >= 16).
 extern "C" int hll_estimate_stats_packed(const uint8_t* regs, float* out,
-                                         int64_t n_rows, int r,
+                                         int64_t n_rows, int r, int threads,
                                          cudaStream_t stream) {
-  return launch_any<true>(regs, out, n_rows, r >> 1, r, stream);
+  return launch_any<true>(regs, out, n_rows, r >> 1, r, threads, stream);
 }

@@ -20,7 +20,11 @@
 // those bytes: each destination row is read once and written at most
 // once. The sorted list is cut into fixed runs of kRunEdges edges, one run
 // per group of lanes, so a hub whose in-degree runs to tens of thousands
-// is spread over many groups and every group does the same work. A group
+// is spread over many groups and every group does the same work (the run
+// length is the launcher's `run_edges`, one of 256, 512, 1024 and 2048:
+// each is its own instantiation, so the run arithmetic stays
+// compile-time; kernels/autotune.py holds the default, 1024, and the
+// sweep). A group
 // is a whole warp for rows of 128 to 512 bytes (4-, 8- or 16-byte lanes:
 // one warp load per edge), so a warp never diverges on its segment ends;
 // rows wider than 512 bytes are walked in 512-byte chunks of 16-byte
@@ -84,10 +88,10 @@
 
 namespace {
 
-// Directed edges a group walks, and source rows a lane loads before it
-// folds them: chosen by measurement on the H100
-// (scripts/sweep_propagate.py; PERF.md).
-constexpr int64_t kRunEdges = 1024;
+// Source rows a lane loads before it folds them, and the block size:
+// chosen by measurement on the H100 (scripts/sweep_propagate.py;
+// PERF.md). The edges a group walks, kRunEdges, are a template argument
+// (the launcher's run_edges).
 constexpr int kBatch = 8;
 constexpr int kThreads = 256;
 
@@ -201,8 +205,9 @@ __device__ __forceinline__ void flush(const uint32_t* __restrict__ regs,
 }
 
 // lanes: lanes per group (a power of two <= 32); chunks: row chunks of
-// lanes * kWords words. dst must be non-decreasing.
-template <bool kPacked, int kWords>
+// lanes * kWords words; kRunEdges: directed edges a group walks. dst must
+// be non-decreasing.
+template <bool kPacked, int kWords, int kRunEdges>
 __global__ void __launch_bounds__(kThreads)
     hll_propagate_kernel(const uint32_t* __restrict__ regs,
                          uint32_t* __restrict__ out,
@@ -266,7 +271,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <bool kPacked, int kWords>
+template <bool kPacked, int kWords, int kRunEdges>
 void launch_words(const uint32_t* regs, uint32_t* out, const int32_t* src,
                   const int32_t* dst, int64_t n_edges, int64_t n_rows,
                   int64_t row_words, cudaStream_t stream) {
@@ -275,16 +280,47 @@ void launch_words(const uint32_t* regs, uint32_t* out, const int32_t* src,
   const int64_t chunks = row_words / (lanes64 * kWords);
   const int64_t n_runs = (n_edges + kRunEdges - 1) / kRunEdges;
   // a run takes `lanes` threads
-  hll_propagate_kernel<kPacked, kWords>
+  hll_propagate_kernel<kPacked, kWords, kRunEdges>
       <<<repro::grid_for(n_runs * lanes, kThreads), kThreads, 0, stream>>>(
           regs, out, src, dst, n_edges, n_rows, row_words, lanes, chunks);
 }
 
-// width: bytes per row, a power of two >= 8.
+// The run length's instantiation; false for a length outside the grid.
+template <bool kPacked, int kWords>
+bool launch_run(const uint32_t* regs, uint32_t* out, const int32_t* src,
+                const int32_t* dst, int64_t n_edges, int64_t n_rows,
+                int64_t row_words, int run_edges, cudaStream_t stream) {
+  switch (run_edges) {
+    case 256:
+      launch_words<kPacked, kWords, 256>(regs, out, src, dst, n_edges,
+                                         n_rows, row_words, stream);
+      return true;
+    case 512:
+      launch_words<kPacked, kWords, 512>(regs, out, src, dst, n_edges,
+                                         n_rows, row_words, stream);
+      return true;
+    case 1024:
+      launch_words<kPacked, kWords, 1024>(regs, out, src, dst, n_edges,
+                                          n_rows, row_words, stream);
+      return true;
+    case 2048:
+      launch_words<kPacked, kWords, 2048>(regs, out, src, dst, n_edges,
+                                          n_rows, row_words, stream);
+      return true;
+    default:
+      return false;
+  }
+}
+
+// width: bytes per row, a power of two >= 8; run_edges: one of 256, 512,
+// 1024 and 2048 (cudaErrorInvalidValue otherwise, nothing launched).
 template <bool kPacked>
 int launch(const uint8_t* regs, uint8_t* out, const int32_t* src,
            const int32_t* dst, int64_t n_edges, int64_t n_rows, int width,
-           cudaStream_t stream) {
+           int run_edges, cudaStream_t stream) {
+  if (run_edges != 256 && run_edges != 512 && run_edges != 1024 &&
+      run_edges != 2048)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_edges == 0) return 0;
   const auto* r = reinterpret_cast<const uint32_t*>(regs);
   auto* o = reinterpret_cast<uint32_t*>(out);
@@ -294,14 +330,14 @@ int launch(const uint8_t* regs, uint8_t* out, const int32_t* src,
   // 16-byte aligned)
   const int words = row_words >= 128 ? 4 : (row_words >= 64 ? 2 : 1);
   if (words == 4) {
-    launch_words<kPacked, 4>(r, o, src, dst, n_edges, n_rows, row_words,
-                             stream);
+    launch_run<kPacked, 4>(r, o, src, dst, n_edges, n_rows, row_words,
+                           run_edges, stream);
   } else if (words == 2) {
-    launch_words<kPacked, 2>(r, o, src, dst, n_edges, n_rows, row_words,
-                             stream);
+    launch_run<kPacked, 2>(r, o, src, dst, n_edges, n_rows, row_words,
+                           run_edges, stream);
   } else {
-    launch_words<kPacked, 1>(r, o, src, dst, n_edges, n_rows, row_words,
-                             stream);
+    launch_run<kPacked, 1>(r, o, src, dst, n_edges, n_rows, row_words,
+                           run_edges, stream);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -534,19 +570,22 @@ int launch_into(const uint8_t* src_panel, uint8_t* out, const int32_t* src,
 
 }  // namespace
 
+// run_edges: directed edges a group walks, 256, 512, 1024 or 2048.
 extern "C" int hll_propagate(const uint8_t* regs, uint8_t* out,
                              const int32_t* src, const int32_t* dst,
                              int64_t n_edges, int64_t n_rows, int r,
-                             cudaStream_t stream) {
-  return launch<false>(regs, out, src, dst, n_edges, n_rows, r, stream);
+                             int run_edges, cudaStream_t stream) {
+  return launch<false>(regs, out, src, dst, n_edges, n_rows, r, run_edges,
+                       stream);
 }
 
 // r: registers per row; the packed row is r / 2 bytes (r >= 16).
 extern "C" int hll_propagate_packed(const uint8_t* regs, uint8_t* out,
                                     const int32_t* src, const int32_t* dst,
                                     int64_t n_edges, int64_t n_rows, int r,
-                                    cudaStream_t stream) {
-  return launch<true>(regs, out, src, dst, n_edges, n_rows, r >> 1, stream);
+                                    int run_edges, cudaStream_t stream) {
+  return launch<true>(regs, out, src, dst, n_edges, n_rows, r >> 1,
+                      run_edges, stream);
 }
 
 // out (n_out rows) max= src_panel (n_src rows) over a dst-sorted routing,

@@ -15,7 +15,10 @@
 // Design: a group of g lanes per pair (p=8: 16 lanes, two pairs a warp;
 // packed 8 lanes, four pairs), each lane loading kLoads 16-byte vectors of
 // both rows before it counts any, on a persistent grid of at most
-// kBlocksPerSM blocks per SM. Each warp holds its pairs' 5(q+2) bins in
+// kBlocksPerSM blocks per SM. A warp takes at most the launcher's
+// `max_pairs` pairs at once (1, 2, 4 or 8; kernels/autotune.py holds the
+// default, 4, and the sweep): a narrow row takes more lanes a pair rather
+// than more pairs. It is read at launch only. Each warp holds its pairs' 5(q+2) bins in
 // shared memory. Per 32-bit word:
 // * the zeros of A, B and A∪B are counted with one carry-free add and a
 //   popcount each (repro::nonzero_regs), and the three bins at value 0
@@ -46,7 +49,6 @@ namespace {
 // Design constants, swept on the card by scripts/sweep_pairsets.py.
 constexpr int kVecBytes = 16;        // load width (8 where alignment forbids)
 constexpr int kLoads = 1;            // vectors of each row in flight a lane
-constexpr int kMaxPairsPerWarp = 4;  // caps the bins a warp holds
 constexpr int kThreads = 256;
 constexpr int kBlocksPerSM = 8;      // persistent grid
 constexpr int kMinBlocks = 4;        // blocks an SM must hold (caps registers)
@@ -234,14 +236,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks)
   }
 }
 
+// max_pairs: the most pairs a warp takes at once (it caps the bins a warp
+// holds): a row that leaves more lanes idle takes more lanes a pair.
 template <bool kPacked, int kVec>
 int launch(const uint8_t* regs, const int32_t* pa, const int32_t* pb,
            float* stats, float* sz, int64_t n_pairs, int64_t n_rows,
-           int row_bytes, int regs_per_row, int q, cudaStream_t stream) {
+           int row_bytes, int regs_per_row, int q, int max_pairs,
+           cudaStream_t stream) {
   constexpr auto kernel = intersection_stats_kernel<kPacked, kVec>;
   const int row_vecs = row_bytes / kVec;
   int g_log2 = repro::group_log2(row_vecs, kLoads);
-  while ((32 >> g_log2) > kMaxPairsPerWarp) ++g_log2;
+  while ((32 >> g_log2) > max_pairs) ++g_log2;
   const int per_warp = 32 >> g_log2;
   const int slice = (per_warp * 5 * (q + 2) + 3) & ~3;
   const size_t smem = static_cast<size_t>(kThreads / 32) * slice * sizeof(int);
@@ -260,27 +265,35 @@ int launch(const uint8_t* regs, const int32_t* pa, const int32_t* pb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// max_pairs: 1, 2, 4 or 8 (cudaErrorInvalidValue otherwise, nothing
+// launched).
 template <bool kPacked>
 int launch_any(const uint8_t* regs, const int32_t* pa, const int32_t* pb,
                float* stats, float* sz, int64_t n_pairs, int64_t n_rows,
-               int row_bytes, int regs_per_row, int q, cudaStream_t stream) {
+               int row_bytes, int regs_per_row, int q, int max_pairs,
+               cudaStream_t stream) {
+  if (max_pairs != 1 && max_pairs != 2 && max_pairs != 4 && max_pairs != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_pairs == 0) return 0;
   const bool wide = kVecBytes == 16 && row_bytes % 16 == 0 &&
                     reinterpret_cast<uintptr_t>(regs) % 16 == 0;
   return wide ? launch<kPacked, 16>(regs, pa, pb, stats, sz, n_pairs, n_rows,
-                                    row_bytes, regs_per_row, q, stream)
+                                    row_bytes, regs_per_row, q, max_pairs,
+                                    stream)
               : launch<kPacked, 8>(regs, pa, pb, stats, sz, n_pairs, n_rows,
-                                   row_bytes, regs_per_row, q, stream);
+                                   row_bytes, regs_per_row, q, max_pairs,
+                                   stream);
 }
 
 }  // namespace
 
+// max_pairs: the most pairs a warp takes at once, 1, 2, 4 or 8.
 extern "C" int intersection_stats(const uint8_t* regs, const int32_t* pa,
                                   const int32_t* pb, float* stats, float* sz,
                                   int64_t n_pairs, int64_t n_rows, int r,
-                                  int q, cudaStream_t stream) {
+                                  int q, int max_pairs, cudaStream_t stream) {
   return launch_any<false>(regs, pa, pb, stats, sz, n_pairs, n_rows, r, r, q,
-                           stream);
+                           max_pairs, stream);
 }
 
 // r: registers per row; the packed row is r / 2 bytes (r >= 16).
@@ -288,7 +301,8 @@ extern "C" int intersection_stats_packed(const uint8_t* regs,
                                          const int32_t* pa, const int32_t* pb,
                                          float* stats, float* sz,
                                          int64_t n_pairs, int64_t n_rows,
-                                         int r, int q, cudaStream_t stream) {
+                                         int r, int q, int max_pairs,
+                                         cudaStream_t stream) {
   return launch_any<true>(regs, pa, pb, stats, sz, n_pairs, n_rows, r >> 1, r,
-                          q, stream);
+                          q, max_pairs, stream);
 }

@@ -16,7 +16,10 @@
 // at a time waits out one memory latency per member, and the longest set
 // of the panel sets the kernel's time.
 //
-// Design: a block of kWarps warps owns kWarps consecutive sets. Each
+// Design: a block of kWarps warps owns kWarps consecutive sets (kWarps is
+// the launcher's `set_block`, 4, 8 or 16: it sizes __launch_bounds__ and
+// the static shared arrays, so each is its own instantiation;
+// kernels/autotune.py holds the default, 8, and the sweep). Each
 // set's id row is cut into 32-lane windows, and the block's windows form a
 // queue in window-major order (every set's first window, then every
 // set's second, ...), from which each warp takes kAhead windows at a time
@@ -48,7 +51,6 @@ namespace {
 constexpr int kVecBytes = 16;  // load width (8 where alignment forbids 16)
 constexpr int kMembers = 4;    // member rows in flight a lane group
 constexpr int kAhead = 2;      // id windows a warp takes, and loads, at once
-constexpr int kWarps = 8;      // sets a block, and warps sharing them
 // id windows up to which a warp owns its set (panels of L <= 32 * this);
 // wider panels share each block's windows among its warps
 constexpr int kOwnWindows = 2;
@@ -126,8 +128,9 @@ __device__ __forceinline__ bool merge_window(bool live, int32_t id,
 // partial rows merged into each set's chunk in shared memory.
 // row_vecs: kVec-byte vectors per row; g = 1 << g_log2 lanes a group, the
 // column chunk's vectors (min(32, row_vecs)); regs_per_row: registers per
-// row (the zero count is regs_per_row - nz).
-template <bool kPacked, int kVec, bool kShared>
+// row (the zero count is regs_per_row - nz); kWarps: sets a block, and
+// warps sharing them.
+template <bool kPacked, int kVec, bool kShared, int kWarps>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
     union_estimate_kernel(const uint8_t* __restrict__ regs,
                           const int32_t* __restrict__ ids,
@@ -233,7 +236,7 @@ __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
   }
 }
 
-template <bool kPacked, int kVec>
+template <bool kPacked, int kVec, int kWarps>
 int launch(const uint8_t* regs, const int32_t* ids, const uint8_t* mask,
            float* out, int64_t n_sets, int64_t n_rows, int lanes,
            int row_bytes, int regs_per_row, cudaStream_t stream) {
@@ -243,35 +246,61 @@ int launch(const uint8_t* regs, const int32_t* ids, const uint8_t* mask,
   const unsigned int blocks =
       static_cast<unsigned int>((n_sets + kWarps - 1) / kWarps);
   auto* kernel = lanes <= 32 * kOwnWindows
-                     ? union_estimate_kernel<kPacked, kVec, false>
-                     : union_estimate_kernel<kPacked, kVec, true>;
+                     ? union_estimate_kernel<kPacked, kVec, false, kWarps>
+                     : union_estimate_kernel<kPacked, kVec, true, kWarps>;
   kernel<<<blocks, kWarps * 32, 0, stream>>>(
       regs, ids, mask, reinterpret_cast<float2*>(out), n_sets, n_rows, lanes,
       row_vecs, g_log2, regs_per_row);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kPacked, int kWarps>
+int launch_vec(const uint8_t* regs, const int32_t* ids, const uint8_t* mask,
+               float* out, int64_t n_sets, int64_t n_rows, int lanes,
+               int row_bytes, int regs_per_row, cudaStream_t stream) {
+  const bool wide = kVecBytes == 16 && row_bytes % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(regs) % 16 == 0;
+  return wide ? launch<kPacked, 16, kWarps>(regs, ids, mask, out, n_sets,
+                                            n_rows, lanes, row_bytes,
+                                            regs_per_row, stream)
+              : launch<kPacked, 8, kWarps>(regs, ids, mask, out, n_sets,
+                                           n_rows, lanes, row_bytes,
+                                           regs_per_row, stream);
+}
+
+// set_block: sets a block, 4, 8 or 16 (cudaErrorInvalidValue otherwise,
+// nothing launched).
 template <bool kPacked>
 int launch_any(const uint8_t* regs, const int32_t* ids, const uint8_t* mask,
                float* out, int64_t n_sets, int64_t n_rows, int lanes,
-               int row_bytes, int regs_per_row, cudaStream_t stream) {
+               int row_bytes, int regs_per_row, int set_block,
+               cudaStream_t stream) {
+  if (set_block != 4 && set_block != 8 && set_block != 16)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n_sets == 0) return 0;
-  const bool wide = kVecBytes == 16 && row_bytes % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(regs) % 16 == 0;
-  return wide ? launch<kPacked, 16>(regs, ids, mask, out, n_sets, n_rows,
-                                    lanes, row_bytes, regs_per_row, stream)
-              : launch<kPacked, 8>(regs, ids, mask, out, n_sets, n_rows,
-                                   lanes, row_bytes, regs_per_row, stream);
+  switch (set_block) {
+    case 4:
+      return launch_vec<kPacked, 4>(regs, ids, mask, out, n_sets, n_rows,
+                                    lanes, row_bytes, regs_per_row, stream);
+    case 8:
+      return launch_vec<kPacked, 8>(regs, ids, mask, out, n_sets, n_rows,
+                                    lanes, row_bytes, regs_per_row, stream);
+    default:
+      return launch_vec<kPacked, 16>(regs, ids, mask, out, n_sets, n_rows,
+                                     lanes, row_bytes, regs_per_row, stream);
+  }
 }
 
 }  // namespace
 
+// set_block: sets a block, 4, 8 or 16.
 extern "C" int union_estimate_stats(const uint8_t* regs, const int32_t* ids,
                                     const uint8_t* mask, float* out,
                                     int64_t n_sets, int64_t n_rows, int lanes,
-                                    int r, cudaStream_t stream) {
+                                    int r, int set_block,
+                                    cudaStream_t stream) {
   return launch_any<false>(regs, ids, mask, out, n_sets, n_rows, lanes, r, r,
-                           stream);
+                           set_block, stream);
 }
 
 // r: registers per row; the packed row is r / 2 bytes (r >= 16).
@@ -279,8 +308,8 @@ extern "C" int union_estimate_stats_packed(const uint8_t* regs,
                                            const int32_t* ids,
                                            const uint8_t* mask, float* out,
                                            int64_t n_sets, int64_t n_rows,
-                                           int lanes, int r,
+                                           int lanes, int r, int set_block,
                                            cudaStream_t stream) {
   return launch_any<true>(regs, ids, mask, out, n_sets, n_rows, lanes, r >> 1,
-                          r, stream);
+                          r, set_block, stream);
 }

@@ -46,25 +46,35 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I64, _I32, _U32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                         ctypes.c_uint32)
 
-#: C launcher name -> argument types (pointers and the stream as c_void_p)
+#: C launcher name -> argument types (pointers and the stream as c_void_p).
+#: Each tuned launcher takes its launch shape (``kernels.autotune``: the
+#: op's one block argument) as the int before the stream; a value outside
+#: the op's grid returns cudaErrorInvalidValue and launches nothing.
 KERNELS = {
-    # regs, rows, keys, mask, n_edges, n_rows, p, s_hi, s_lo, stream
-    "hll_accumulate": (_P, _P, _P, _P, _I64, _I64, _I32, _U32, _U32, _P),
-    # regs, out, n_rows, r, stream
-    "hll_estimate_stats": (_P, _P, _I64, _I32, _P),
-    # regs, out, src, dst, n_edges, n_rows, r, stream
-    "hll_propagate": (_P, _P, _P, _P, _I64, _I64, _I32, _P),
+    # regs, rows, keys, mask, n_edges, n_rows, p, s_hi, s_lo, edge_block,
+    # stream
+    "hll_accumulate": (_P, _P, _P, _P, _I64, _I64, _I32, _U32, _U32, _I32,
+                       _P),
+    # regs, out, n_rows, r, row_block (threads a block), stream
+    "hll_estimate_stats": (_P, _P, _I64, _I32, _I32, _P),
+    # regs, out, src, dst, n_edges, n_rows, r, edge_block (edges a run),
+    # stream
+    "hll_propagate": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
     # src_panel, out, src, dst, n_edges, n_src, n_out, r, run_edges, stream
+    # (not tuned: the wrapper derives the run length)
     "hll_propagate_into": (_P, _P, _P, _P, _I64, _I64, _I64, _I32, _I64,
                            _P),
-    # regs, pa, pb, stats, sz, n_pairs, n_rows, r, q, stream
-    "intersection_stats": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
-    # regs, ids, mask, out, n_sets, n_rows, lanes, r, stream
-    "union_estimate_stats": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _P),
-    # a, b, stats, n_pairs, r, q, stream
-    "ertl_stats": (_P, _P, _P, _I64, _I32, _I32, _P),
-    # prev, cur, out, n_rows, r, stream
-    "hip_delta_rows": (_P, _P, _P, _I64, _I32, _P),
+    # regs, pa, pb, stats, sz, n_pairs, n_rows, r, q, pair_block (most
+    # pairs a warp), stream
+    "intersection_stats": (_P, _P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                           _P),
+    # regs, ids, mask, out, n_sets, n_rows, lanes, r, set_block, stream
+    "union_estimate_stats": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _I32,
+                             _P),
+    # a, b, stats, n_pairs, r, q, pair_block (pairs a block), stream
+    "ertl_stats": (_P, _P, _P, _I64, _I32, _I32, _I32, _P),
+    # prev, cur, out, n_rows, r, row_block (threads a block), stream
+    "hip_delta_rows": (_P, _P, _P, _I64, _I32, _I32, _P),
 }
 #: the packed-layout variants take their byte kernel's arguments, with r
 #: the register count (the row is r/2 bytes)

@@ -9,13 +9,15 @@ Pallas kernel, N need not be a multiple of a row block.
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 :func:`plain`, the plain PyTorch version. Both sum exactly and round once,
-so they agree bit for bit.
+so they agree bit for bit. ``row_block`` is the kernel's block size in
+threads (``kernels.autotune``; ``None``: the fallback), checked against
+the op's grid on every device.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, autotune, ref
 
 __all__ = ["hip_delta_rows", "plain"]
 
@@ -27,9 +29,11 @@ def plain(prev: torch.Tensor, cur: torch.Tensor, *,
 
 
 def hip_delta_rows(prev: torch.Tensor, cur: torch.Tensor, *,
-                   layout: str = "byte") -> torch.Tensor:
+                   layout: str = "byte",
+                   row_block: int | None = None) -> torch.Tensor:
     """prev/cur: uint8[N, r] -> float32[N] summed inverse change
     probabilities of the registers that grew from ``prev`` to ``cur``."""
+    row_block = autotune.check_block("hip_delta", "row_block", row_block)
     if layout != "byte":
         raise ValueError(f"hip_delta_rows requires byte layout (the ADS "
                          f"family never packs), got {layout!r}")
@@ -43,6 +47,6 @@ def hip_delta_rows(prev: torch.Tensor, cur: torch.Tensor, *,
         return plain(prev, cur, layout=layout)
     out = torch.empty(n, dtype=torch.float32, device=prev.device)
     _build.launch("hip_delta_rows", prev.device, prev.data_ptr(),
-                  cur.data_ptr(), out.data_ptr(), n, r,
+                  cur.data_ptr(), out.data_ptr(), n, r, row_block,
                   _build.stream_of(prev))
     return out

@@ -9,7 +9,9 @@ panel is updated in place, as the JAX ingest path donates it
 (``accumulate_donated``), and returned. On the packed layout
 (``uint8[V, r/2]``) the register is one nibble and takes
 ``min(rho, 15)``; the launcher is ``hll_accumulate_packed``. The kernel
-takes any edge count in one launch.
+takes any edge count in one launch. ``edge_block`` is its launch shape,
+the edges a warp's tile holds (``kernels.autotune``; ``None``: the
+fallback), checked against the op's grid on every device.
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 :func:`plain`, the plain PyTorch version.
@@ -19,7 +21,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core.hashing import bucket_rho, seed_words
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, autotune, ref
 
 __all__ = ["hll_accumulate", "plain"]
 
@@ -60,7 +62,8 @@ def plain(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
 
 def hll_accumulate(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
                    mask: torch.Tensor | None = None, *, p: int, seed: int = 0,
-                   layout: str = "byte") -> torch.Tensor:
+                   layout: str = "byte",
+                   edge_block: int | None = None) -> torch.Tensor:
     """regs: uint8[V, r] (packed: uint8[V, r/2]), updated in place; rows:
     int32[E]; keys: uint32[E]; mask: bool[E], or ``None`` when every edge
     is live. Returns ``regs``.
@@ -69,12 +72,13 @@ def hll_accumulate(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
     before they reach the card (the kernel drops an out-of-range row
     rather than write outside the panel).
     """
+    edge_block = autotune.check_block("accumulate", "edge_block", edge_block)
     if not _check(regs, rows, keys, mask, p, layout):
         return plain(regs, rows, keys, mask, p=p, seed=seed, layout=layout)
     s_hi, s_lo = seed_words(seed)
     _build.launch(_build.kernel_name("hll_accumulate", layout), regs.device,
                   regs.data_ptr(), rows.data_ptr(), keys.data_ptr(),
                   None if mask is None else mask.data_ptr(), rows.shape[0],
-                  regs.shape[0], p, s_hi, s_lo,
+                  regs.shape[0], p, s_hi, s_lo, edge_block,
                   _build.stream_of(regs))
     return regs

@@ -14,7 +14,10 @@ raises ``ValueError`` otherwise; :func:`sort_routing` puts any routing in
 that order, the engine builds its routing with it once per version, and
 ``ops.propagate`` sorts a routing it finds out of order.
 On a CPU tensor the wrapper runs :func:`plain`, the plain PyTorch
-version, which takes the edges in any order.
+version, which takes the edges in any order. ``edge_block`` is the
+kernel's run length, the dst-sorted edges a group walks
+(``kernels.autotune``; ``None``: the fallback), checked against the op's
+grid on every device.
 
 :func:`hll_propagate_into` wraps the same source's two-panel launchers
 (``hll_propagate_into``, ``hll_propagate_into_packed``), the port's
@@ -35,7 +38,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, autotune, ref
 
 __all__ = ["RUN_EDGES_MAX", "RUN_EDGES_MIN", "dst_sorted", "hll_propagate",
            "hll_propagate_into", "plain", "plain_into", "run_edges",
@@ -91,10 +94,12 @@ def plain(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor, *,
 
 
 def hll_propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
-                  *, layout: str = "byte") -> torch.Tensor:
+                  *, layout: str = "byte",
+                  edge_block: int | None = None) -> torch.Tensor:
     """regs: uint8[V, r] (packed: uint8[V, r/2]); src/dst: int32[E] in
     [0, V), ``dst`` non-decreasing on the card -> a new panel of the same
     shape."""
+    edge_block = autotune.check_block("propagate", "edge_block", edge_block)
     on_card = _build.check_device(regs, "regs")
     v, r = _build.check_panel(regs, layout)
     _build.check_ids(src, "src", regs)
@@ -111,7 +116,8 @@ def hll_propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     out = regs.clone()
     _build.launch(_build.kernel_name("hll_propagate", layout), regs.device,
                   regs.data_ptr(), out.data_ptr(), src.data_ptr(),
-                  dst.data_ptr(), src.shape[0], v, r, _build.stream_of(regs))
+                  dst.data_ptr(), src.shape[0], v, r, edge_block,
+                  _build.stream_of(regs))
     return out
 
 

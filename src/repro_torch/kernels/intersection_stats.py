@@ -7,7 +7,9 @@ histograms ``float32[B, 5, q+2]`` and the ``(s, z)`` statistics of A, B
 and A ∪ B, ``float32[B, 3, 2]``, which is everything
 ``core.intersection.estimate_from_pair_stats`` reads. On the packed
 layout (``uint8[V, r/2]``, launcher ``intersection_stats_packed``) the
-``(s, z)`` sums are exact.
+``(s, z)`` sums are exact. ``pair_block`` is the most pairs a warp of
+the kernel takes at once (``kernels.autotune``; ``None``: the fallback),
+checked against the op's grid on every device.
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 :func:`plain`, the plain PyTorch version.
@@ -16,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, autotune, ref
 
 __all__ = ["intersection_stats", "plain"]
 
@@ -29,9 +31,12 @@ def plain(regs: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor, q: int, *,
 
 def intersection_stats(regs: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
                        q: int, *, layout: str = "byte",
+                       pair_block: int | None = None,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """regs: uint8[V, r] (packed: uint8[V, r/2]); pa/pb: int32[B] in [0, V) ->
     (float32[B, 5, q+2] Eq. 19 stats, float32[B, 3, 2] (s, z) panels)."""
+    pair_block = autotune.check_block("intersection_stats", "pair_block",
+                                      pair_block)
     on_card = _build.check_device(regs, "regs")
     v, r = _build.check_panel(regs, layout)
     _build.check_ids(pa, "pa", regs)
@@ -46,5 +51,6 @@ def intersection_stats(regs: torch.Tensor, pa: torch.Tensor, pb: torch.Tensor,
     _build.launch(_build.kernel_name("intersection_stats", layout),
                   regs.device, regs.data_ptr(),
                   pa.data_ptr(), pb.data_ptr(), stats.data_ptr(),
-                  sz.data_ptr(), b, v, r, q, _build.stream_of(regs))
+                  sz.data_ptr(), b, v, r, q, pair_block,
+                  _build.stream_of(regs))
     return stats, sz

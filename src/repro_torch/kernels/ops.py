@@ -35,9 +35,15 @@ kernel on a CUDA tensor and runs its plain version on a CPU tensor;
 "ref" calls the plain version (``kernels/ref.py``, each wrapper's
 ``plain``) on whichever device, and never launches a kernel.
 
-The CUDA kernels need no block padding (each masks its own ragged edge),
-and their launch shapes are constants in ``csrc/``; the autotune table of
-the JAX package is not ported yet.
+The CUDA kernels need no block padding (each masks its own ragged edge).
+Each op but ``propagate_into`` takes the JAX package's block argument
+(``edge_block``, ``row_block``, ``set_block``, ``pair_block``), which on
+the card is its kernel's launch shape: ``None`` resolves through
+``kernels.autotune`` (a swept winner for this card, ``p``, impl, layout
+and the call's size class, else the fallback table), and ``p`` comes
+from ``cfg.p`` or, for ``propagate`` and ``hip_delta``, from the panel's
+width, as the JAX package's ``_panel_p`` takes it. The plain versions (``impl="ref"``, or a CPU tensor)
+ignore it, as the JAX ``ref`` registrations do.
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ import torch
 
 from repro_torch.core import ads, hll
 from repro_torch.core.hll import HLLConfig
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, autotune
 from repro_torch.kernels import ertl_stats as _ertl
 from repro_torch.kernels import hip_delta as _hip
 from repro_torch.kernels import hll_accumulate as _acc
@@ -71,6 +77,13 @@ __all__ = ["accumulate", "propagate", "propagate_into", "estimate",
 IMPLS = ("cuda", "ref")
 
 
+def _panel_p(regs: torch.Tensor, layout: str) -> int:
+    """The precision of a panel from its row width (two registers a byte
+    packed)."""
+    r = regs.shape[1] * (2 if layout == "packed" else 1)
+    return r.bit_length() - 1
+
+
 def _plain(impl: str) -> bool:
     """True for ``impl="ref"`` (the plain version on any device), False
     for "cuda" (the wrapper); ``ValueError`` for any other name."""
@@ -81,16 +94,24 @@ def _plain(impl: str) -> bool:
 
 def accumulate(regs: torch.Tensor, rows: torch.Tensor, keys: torch.Tensor,
                cfg: HLLConfig, mask: torch.Tensor | None = None,
-               layout: str = "byte", impl: str = "cuda") -> torch.Tensor:
+               layout: str = "byte", impl: str = "cuda",
+               edge_block: int | None = None) -> torch.Tensor:
     """Insert keys[e] into sketch regs[rows[e]] in place (Algorithm 1);
     ``mask=None`` inserts every edge (the kernel then reads no mask)."""
-    fn = _acc.plain if _plain(impl) else hll_accumulate
-    return fn(regs, rows, keys, mask, p=cfg.p, seed=cfg.seed, layout=layout)
+    if _plain(impl):
+        return _acc.plain(regs, rows, keys, mask, p=cfg.p, seed=cfg.seed,
+                          layout=layout)
+    edge_block = autotune.resolve_block("accumulate", "edge_block",
+                                        edge_block, p=cfg.p, impl=impl,
+                                        layout=layout, size=rows.shape[0])
+    return hll_accumulate(regs, rows, keys, mask, p=cfg.p, seed=cfg.seed,
+                          layout=layout, edge_block=edge_block)
 
 
 def propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
               mask: torch.Tensor | None = None,
-              layout: str = "byte", impl: str = "cuda") -> torch.Tensor:
+              layout: str = "byte", impl: str = "cuda",
+              edge_block: int | None = None) -> torch.Tensor:
     """One Algorithm 2 merge pass into a fresh panel, over edges in any
     order; ``mask`` (bool[E]) drops the slots where it is False. A
     dst-sorted routing, as the engine builds it, is launched as it is."""
@@ -104,7 +125,10 @@ def propagate(regs: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
             src, dst = sort_routing(src, dst)
         if regs.data_ptr() % 16:
             regs = regs.clone()
-    return hll_propagate(regs, src, dst, layout=layout)
+    edge_block = autotune.resolve_block("propagate", "edge_block", edge_block,
+                                        p=_panel_p(regs, layout), impl=impl,
+                                        layout=layout, size=src.shape[0])
+    return hll_propagate(regs, src, dst, layout=layout, edge_block=edge_block)
 
 
 def propagate_into(out: torch.Tensor, src_panel: torch.Tensor,
@@ -121,12 +145,17 @@ def propagate_into(out: torch.Tensor, src_panel: torch.Tensor,
 
 
 def estimate(regs: torch.Tensor, cfg, layout: str = "byte",
-             impl: str = "cuda") -> torch.Tensor:
+             impl: str = "cuda", row_block: int | None = None) -> torch.Tensor:
     """Cardinality estimate per sketch row (uint8[N, w]) by ``cfg.estimator``;
     an ``ADSConfig`` gets the Flajolet combination (the HIP curve's
     plain floor)."""
-    fn = _est.plain if _plain(impl) else hll_estimate_stats
-    stats = fn(regs, layout=layout)
+    if _plain(impl):
+        stats = _est.plain(regs, layout=layout)
+    else:
+        row_block = autotune.resolve_block("estimate", "row_block", row_block,
+                                           p=cfg.p, impl=impl, layout=layout,
+                                           size=regs.shape[0])
+        stats = hll_estimate_stats(regs, layout=layout, row_block=row_block)
     if isinstance(cfg, ads.ADSConfig):
         cfg = ads._plain_cfg(cfg)
     return hll.estimate_from_stats(stats[:, 0], stats[:, 1], cfg)
@@ -134,36 +163,58 @@ def estimate(regs: torch.Tensor, cfg, layout: str = "byte",
 
 def union_estimate(regs: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor,
                    cfg: HLLConfig, layout: str = "byte",
-                   impl: str = "cuda") -> torch.Tensor:
+                   impl: str = "cuda",
+                   set_block: int | None = None) -> torch.Tensor:
     """|∪ N(x)| per row of a padded ``(ids int32[B, L], mask bool[B, L])``
     set panel, by ``cfg.estimator``; masked lanes merge nothing."""
-    fn = _union.plain if _plain(impl) else union_estimate_stats
-    stats = fn(regs, ids, mask, layout=layout)
+    if _plain(impl):
+        stats = _union.plain(regs, ids, mask, layout=layout)
+    else:
+        set_block = autotune.resolve_block("union_estimate", "set_block",
+                                           set_block, p=cfg.p, impl=impl,
+                                           layout=layout, size=ids.shape[0])
+        stats = union_estimate_stats(regs, ids, mask, layout=layout,
+                                     set_block=set_block)
     return hll.estimate_from_stats(stats[:, 0], stats[:, 1], cfg)
 
 
 def intersection_stats(regs: torch.Tensor, pairs: torch.Tensor,
                        cfg: HLLConfig, layout: str = "byte",
-                       impl: str = "cuda",
+                       impl: str = "cuda", pair_block: int | None = None,
                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused T̃(xy) pair statistics over ``(B, 2)`` int32 pair lanes."""
-    fn = _pair.plain if _plain(impl) else _intersection_stats
-    return fn(regs, pairs[:, 0].contiguous(), pairs[:, 1].contiguous(), cfg.q,
-              layout=layout)
+    pa, pb = pairs[:, 0].contiguous(), pairs[:, 1].contiguous()
+    if _plain(impl):
+        return _pair.plain(regs, pa, pb, cfg.q, layout=layout)
+    pair_block = autotune.resolve_block("intersection_stats", "pair_block",
+                                        pair_block, p=cfg.p, impl=impl,
+                                        layout=layout, size=pairs.shape[0])
+    return _intersection_stats(regs, pa, pb, cfg.q, layout=layout,
+                               pair_block=pair_block)
 
 
 def ertl_stats(a: torch.Tensor, b: torch.Tensor, cfg: HLLConfig,
-               layout: str = "byte", impl: str = "cuda") -> torch.Tensor:
+               layout: str = "byte", impl: str = "cuda",
+               pair_block: int | None = None) -> torch.Tensor:
     """Eq. 19 statistics float32[E, 5, q+2] for paired rows uint8[E, w]."""
-    fn = _ertl.plain if _plain(impl) else _ertl_stats
-    return fn(a, b, cfg.q, layout=layout)
+    if _plain(impl):
+        return _ertl.plain(a, b, cfg.q, layout=layout)
+    pair_block = autotune.resolve_block("ertl_stats", "pair_block",
+                                        pair_block, p=cfg.p, impl=impl,
+                                        layout=layout, size=a.shape[0])
+    return _ertl_stats(a, b, cfg.q, layout=layout, pair_block=pair_block)
 
 
 def hip_delta(prev: torch.Tensor, cur: torch.Tensor,
-              layout: str = "byte", impl: str = "cuda") -> torch.Tensor:
+              layout: str = "byte", impl: str = "cuda",
+              row_block: int | None = None) -> torch.Tensor:
     """Batch-HIP per-row increments between hop panels uint8[N, r]:
     ``sum_j [cur_j > prev_j] * 2**prev_j`` (ADS family, byte layout only)."""
     if layout != "byte":
         raise ValueError(f"hip_delta requires byte layout, got {layout!r}")
-    fn = _hip.plain if _plain(impl) else hip_delta_rows
-    return fn(prev, cur, layout=layout)
+    if _plain(impl):
+        return _hip.plain(prev, cur, layout=layout)
+    row_block = autotune.resolve_block("hip_delta", "row_block", row_block,
+                                       p=_panel_p(prev, layout), impl=impl,
+                                       layout=layout, size=prev.shape[0])
+    return hip_delta_rows(prev, cur, layout=layout, row_block=row_block)

@@ -102,7 +102,9 @@ class KernelSet:
     """The main-path kernels for one (impl, layout, family).
 
     Hashable and value-comparable; each method calls its op of
-    ``kernels.ops`` with the set's impl and layout.
+    ``kernels.ops`` with the set's impl and layout. The block arguments
+    are the JAX ``OpSet``'s: ``None`` resolves through the autotune table
+    (``kernels.autotune``), a value is the kernel's launch shape.
 
     Attributes:
       impl: kernel implementation ("cuda" or "ref").
@@ -118,37 +120,40 @@ class KernelSet:
         return functools.partial(getattr(_ops(), op), impl=self.impl,
                                  layout=self.layout)
 
-    def accumulate(self, regs, rows, keys, cfg, mask=None):
+    def accumulate(self, regs, rows, keys, cfg, mask=None, edge_block=None):
         """Algorithm 1 INSERT over an edge block, in place."""
-        return self._op("accumulate")(regs, rows, keys, cfg, mask=mask)
+        return self._op("accumulate")(regs, rows, keys, cfg, mask=mask,
+                                      edge_block=edge_block)
 
-    def propagate(self, regs, src, dst):
+    def propagate(self, regs, src, dst, edge_block=None):
         """One Algorithm 2 merge pass into a fresh panel."""
-        return self._op("propagate")(regs, src, dst)
+        return self._op("propagate")(regs, src, dst, edge_block=edge_block)
 
     def estimate_rows(self, regs, cfg):
         """Per-row cardinality estimates honoring ``cfg.estimator``."""
         return self._op("estimate")(regs, cfg)
 
-    def ertl_stats(self, a, b, cfg):
+    def ertl_stats(self, a, b, cfg, pair_block=None):
         """Eq. 19 pair statistics of gathered rows (``ops.ertl_stats``)."""
-        return self._op("ertl_stats")(a, b, cfg)
+        return self._op("ertl_stats")(a, b, cfg, pair_block=pair_block)
 
-    def union_estimate(self, regs, ids, mask, cfg):
+    def union_estimate(self, regs, ids, mask, cfg, set_block=None):
         """Fused batched union estimates (``ops.union_estimate``).
 
         The kernel reduces each merged row to ``(s, z)``; the combination
         honors ``cfg.estimator`` outside it.
         """
-        return self._op("union_estimate")(regs, ids, mask, cfg)
+        return self._op("union_estimate")(regs, ids, mask, cfg,
+                                          set_block=set_block)
 
-    def intersection_stats(self, regs, pairs, cfg):
+    def intersection_stats(self, regs, pairs, cfg, pair_block=None):
         """Fused per-pair T̃(xy) statistics ``(stats, sz)``."""
-        return self._op("intersection_stats")(regs, pairs, cfg)
+        return self._op("intersection_stats")(regs, pairs, cfg,
+                                              pair_block=pair_block)
 
-    def hip_delta(self, prev, cur):
+    def hip_delta(self, prev, cur, row_block=None):
         """Batch-HIP per-row increments between two hop panels (ADS)."""
-        return self._op("hip_delta")(prev, cur)
+        return self._op("hip_delta")(prev, cur, row_block=row_block)
 
 
 def resolve(cfg, layout: str = "byte", impl: str = "cuda") -> KernelSet:

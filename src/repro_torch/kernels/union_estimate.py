@@ -8,7 +8,9 @@ returned as ``float32[B, 2]``. Masked lanes merge the empty row; a fully
 masked row gives the empty sketch's ``(r, r)``. Unlike the Pallas
 kernel, B need not be a multiple of a set block. On the packed layout
 (``uint8[V, r/2]``, launcher ``union_estimate_stats_packed``) the rows
-merge nibble by nibble and ``s`` is summed exactly.
+merge nibble by nibble and ``s`` is summed exactly. ``set_block`` is the
+kernel's sets a block (``kernels.autotune``; ``None``: the fallback),
+checked against the op's grid on every device.
 
 On a CUDA tensor the wrapper launches the kernel; on a CPU tensor it runs
 :func:`plain`, the plain PyTorch version.
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _build, ref
+from repro_torch.kernels import _build, autotune, ref
 
 __all__ = ["union_estimate_stats", "plain"]
 
@@ -30,11 +32,12 @@ def plain(regs: torch.Tensor, ids: torch.Tensor, mask: torch.Tensor, *,
 
 
 def union_estimate_stats(regs: torch.Tensor, ids: torch.Tensor,
-                         mask: torch.Tensor, *,
-                         layout: str = "byte") -> torch.Tensor:
+                         mask: torch.Tensor, *, layout: str = "byte",
+                         set_block: int | None = None) -> torch.Tensor:
     """regs: uint8[V, r] (packed: uint8[V, r/2]); ids: int32[B, L] in
     [0, V); mask: bool[B, L],
     L >= 1 -> float32[B, 2] = (s, z) of each set's masked union row."""
+    set_block = autotune.check_block("union_estimate", "set_block", set_block)
     on_card = _build.check_device(regs, "regs")
     v, r = _build.check_panel(regs, layout)
     for t, name, dtype in ((ids, "ids", torch.int32),
@@ -54,5 +57,5 @@ def union_estimate_stats(regs: torch.Tensor, ids: torch.Tensor,
     _build.launch(_build.kernel_name("union_estimate_stats", layout),
                   regs.device, regs.data_ptr(),
                   ids.data_ptr(), mask.data_ptr(), out.data_ptr(), b, v,
-                  lanes, r, _build.stream_of(regs))
+                  lanes, r, set_block, _build.stream_of(regs))
     return out

@@ -1527,3 +1527,159 @@ def test_telemetry_on_the_card_matches_the_cpu(dev):
     assert hashes[0].is_cuda and torch.equal(hashes[0].cpu(), hashes[1])
     assert abs(ns.distinct(sk) - ns.distinct(want)) <= 1e-6 * ns.distinct(
         want)
+
+
+# --------------------------------------------------------------- autotune
+_TUNED = [(op, layout) for op in ("accumulate", "propagate", "estimate",
+                                  "union_estimate", "intersection_stats",
+                                  "ertl_stats", "hip_delta")
+          for layout in ("byte", "packed")
+          if not (op == "hip_delta" and layout == "packed")]
+
+
+def _tuned_case(op, layout, p, size, dev):
+    """(``run(**block)`` through the op's wrapper, its plain result, its
+    launcher) for one op and layout at ``size`` rows (edges, pairs, sets
+    scale with it); registers below 30, where every byte sum is exact."""
+    rng = np.random.default_rng(p * 101 + size + len(op))
+    packed = layout == "packed"
+
+    def panel(v):
+        return (_packed_panel(rng, v, p, dev) if packed
+                else _panel(rng, v, p, 30, dev))
+
+    def ids(hi, shape):
+        return torch.from_numpy(rng.integers(0, hi, shape).astype(
+            np.int32)).to(dev)
+    kw = {"layout": layout}
+    q = 64 - p
+    if op == "accumulate":
+        w = (1 << p) // (2 if packed else 1)
+        e = 37 * size + 5
+        rows, keys = ids(size, e), ids(1 << 31, e).view(torch.uint32)
+        mask = torch.from_numpy(rng.random(e) < 0.8).to(dev)
+        fresh = torch.zeros((size, w), dtype=torch.uint8, device=dev)
+        want = hll_accumulate.plain(fresh.clone(), rows, keys, mask, p=p,
+                                    seed=5, layout=layout)
+        return (lambda **b: hll_accumulate.hll_accumulate(
+            fresh.clone(), rows, keys, mask, p=p, seed=5, **kw, **b), want)
+    if op == "propagate":
+        regs = panel(size)
+        src, dst = _routing(rng.integers(0, size, 23 * size),
+                            rng.integers(0, size, 23 * size), dev)
+        want = hll_propagate.plain(regs, src, dst, layout=layout)
+        return (lambda **b: hll_propagate.hll_propagate(regs, src, dst, **kw,
+                                                        **b), want)
+    if op == "estimate":
+        regs = panel(size)
+        return (lambda **b: hll_estimate.hll_estimate_stats(regs, **kw, **b),
+                hll_estimate.plain(regs, layout=layout))
+    if op == "union_estimate":
+        regs = panel(size)
+        lanes = 70 if size > 100 else 20  # shared windows, then owned
+        sets = ids(size, (size // 3 + 1, lanes))
+        mask = torch.from_numpy(rng.random(tuple(sets.shape)) < 0.6).to(dev)
+        return (lambda **b: union_estimate.union_estimate_stats(
+            regs, sets, mask, **kw, **b),
+            union_estimate.plain(regs, sets, mask, layout=layout))
+    if op == "intersection_stats":
+        regs = panel(size)
+        pa, pb = ids(size, 2 * size + 1), ids(size, 2 * size + 1)
+        return (lambda **b: intersection_stats.intersection_stats(
+            regs, pa, pb, q, **kw, **b),
+            intersection_stats.plain(regs, pa, pb, q, layout=layout))
+    if op == "ertl_stats":
+        a, c = panel(size), panel(size)
+        return (lambda **b: ertl_stats.ertl_stats(a, c, q, **kw, **b),
+                ertl_stats.plain(a, c, q, layout=layout))
+    prev = _panel(rng, size, p, 30, dev)
+    cur = (prev.to(torch.int16) + ids(6, prev.shape) - 2).clamp(0, 40).to(
+        torch.uint8)
+    return (lambda **b: hip_delta.hip_delta_rows(prev, cur, **b),
+            hip_delta.plain(prev, cur))
+
+
+@pytest.mark.parametrize("size", [64, 1001])
+@pytest.mark.parametrize("p", [4, 8, 12])
+@pytest.mark.parametrize("op,layout", _TUNED)
+def test_every_launch_shape_matches_plain(dev, op, layout, p, size):
+    """Every value of the op's autotune grid launches its kernel once and
+    equals the plain version bit for bit, at small and ragged shapes."""
+    from repro_torch.kernels import autotune
+    run, want = _tuned_case(op, layout, p, size, dev)
+    name = {"accumulate": "hll_accumulate", "propagate": "hll_propagate",
+            "estimate": "hll_estimate_stats",
+            "union_estimate": "union_estimate_stats",
+            "intersection_stats": "intersection_stats",
+            "ertl_stats": "ertl_stats", "hip_delta": "hip_delta_rows"}[op]
+    for cand in autotune.SWEEPS[op]:
+        got = _launched(_build.kernel_name(name, layout),
+                        lambda: run(**cand))
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w), cand
+
+
+@pytest.mark.parametrize("layout", ["byte", "packed"])
+def test_launchers_refuse_an_off_grid_shape(dev, layout):
+    """A launcher given a block outside its grid returns an error and
+    launches nothing (the wrappers refuse it before any launch)."""
+    rng = np.random.default_rng(4)
+    regs = _packed_panel(rng, 16, 6, dev) if layout == "packed" else _panel(
+        rng, 16, 6, 30, dev)
+    out = torch.full((16, 2), -1.0, device=dev)
+    fn = getattr(_build.library(),
+                 _build.kernel_name("hll_estimate_stats", layout))
+    stream = _build.stream_of(regs)
+    for bad in (0, 64, 384, 1024):
+        assert fn(regs.data_ptr(), out.data_ptr(), 16, 64, bad, stream) != 0
+    torch.cuda.synchronize()
+    assert bool((out == -1.0).all())
+    assert fn(regs.data_ptr(), out.data_ptr(), 16, 64, 128, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, hll_estimate.plain(regs, layout=layout))
+    with pytest.raises(ValueError, match="grid"):
+        hll_estimate.hll_estimate_stats(regs, layout=layout, row_block=64)
+
+
+def test_card_sweep_drives_each_candidate_once():
+    """On the card a sweep times every candidate of the op once and caches
+    the winner (the fallback unless beaten by more than the margin); a
+    second sweep drives none; ``impl="ref"`` drives none. A sweep on the
+    caller's inputs fills their size class only and writes none of
+    them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (kernels run only on the card)")
+    from repro_torch.kernels import autotune
+    autotune.clear_cache()
+    try:
+        before = autotune.drive_count()
+        got = autotune.sweep("estimate", p=8, layout="packed")
+        grid = autotune.SWEEPS["estimate"]
+        assert autotune.drive_count() == before + len(grid)
+        times = autotune.sweep_times("estimate", p=8, layout="packed")
+        assert [c for c, _ in times] == grid
+        assert got == autotune.pick_winner("estimate", times)
+        assert autotune.sweep("estimate", p=8, layout="packed") == got
+        assert autotune.sweep("estimate", p=8, impl="ref") == (
+            autotune.FALLBACK["estimate"])
+        assert autotune.drive_count() == before + len(grid)
+        assert autotune.device_kind() == torch.cuda.get_device_name()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        regs = torch.randint(0, 16, (5000, 256), generator=gen,
+                             device="cuda", dtype=torch.uint8)
+        rows = torch.randint(0, 5000, (70000,), generator=gen, device="cuda",
+                             dtype=torch.int32)
+        keys = torch.randint(0, 1 << 31, (70000,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        keep = regs.clone()
+        got = autotune.sweep("accumulate", p=8,
+                             inputs=(regs, rows, keys.view(torch.uint32)))
+        grid = autotune.SWEEPS["accumulate"]
+        times = autotune.sweep_times("accumulate", p=8, size=70000)
+        assert [c for c, _ in times] == grid
+        assert got == autotune.pick_winner("accumulate", times)
+        assert autotune.sweep_times("accumulate", p=8) == []
+        assert torch.equal(regs, keep)
+    finally:
+        autotune.clear_cache()
