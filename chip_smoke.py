@@ -219,6 +219,35 @@ Phases, one line each:
    equal to one sketch over every token byte for byte, ``distinct``
    within 3 x rel_std of the exact bigram count); times on their own
    lines;
+9m. LM serving, counters zeroed just before, everything freed at its
+   end: every arch at ``reduced()`` in float32 (TF32 off) with the same
+   weights on the card and the CPU, the prefill's logits and 3 greedy
+   decode steps within ``LM_REDUCED_TOL`` (an int8 cache carried from
+   the CPU each step); Moonlight-16B-A3B at full width in bf16, weights
+   drawn on the card from seed 0 one tensor at a time, 4 x 2,048
+   ``SyntheticCorpus`` prompts (MoE capacity 961) through
+   ``make_prefill_step`` and 16 greedy ``make_decode_step`` calls:
+   values finite, tokens below ``vocab_padded``, the prefill's last
+   logits equal to ``lm_logits(forward_hidden(...))`` there, and, with
+   the MoE capacity raised so that no token drops, a prefill of 2,032
+   tokens then 4 teacher-forced decode steps against the forward within
+   ``LM_BF16_TOL`` (greedy tokens equal where the forward's top-2 margin
+   exceeds it; a planted position + 1 fault must go over it); parameter
+   GiB, init s, peak GiB, prefill s and tokens/s, decode ms a step (CUDA
+   events, median of 16) beside two bytes bounds over ``HW().hbm_bw``
+   (every weight but the embedding plus the KV cache, as the reference's
+   dispatch reads them; and only the experts each step's routers picked,
+   with the KV cache up to the step's position); the served prompts'
+   layer-0 routing (``embed_lookup`` then ``moe_ffn``, 49,152
+   assignments) into ``RoutingSketch(64, p=10)``, coverage within 3 x
+   rel_std of ``torch.unique`` counts, ``collapse_score`` from one
+   ``ertl_stats`` launch; after the counts are read, the same
+   teacher-forced check at full width in float32 on 4 layers within
+   ``LM_F32_TOL``, both planted faults (position + 1, a zeroed K/V) over
+   it, and the routing's kernels against their plain versions on its own
+   inputs (table byte for byte, ``ertl_stats`` bit for bit, the (s, z)
+   behind ``coverage``); then ``python -m repro_torch.launch.serve --arch
+   moonshot-v1-16b-a3b`` exits 0 and prints ``generated``;
 10. small reference: the same queries at RMAT scale 10 on the CPU (plain
     versions) and on the card, which must agree, the top-20 recall of
     the estimated triangle heavy hitters against exact counts (reported),
@@ -280,6 +309,27 @@ COORD_REPLICAS, COORD_SLOW_S = 1024, 0.5
 TEL_EXPERTS, TEL_TOPK, TEL_VOCAB = 64, 6, 163_840
 TEL_SEQ, TEL_BATCH, TEL_SHARDS = 4096, 256, 4
 TEL_P_ROUTING, TEL_P_NGRAM = 10, 12
+#: phase 9m: Moonlight-16B-A3B served at full width in bf16 (4 prompts of
+#: 2,048 tokens, 16 greedy decode steps; the teacher-forced check decodes
+#: the 4 positions after a 2,032-token prefill, 4 x 2,032 a multiple of
+#: the 64 experts), and every arch's reduced config, 2 prompts of 32
+#: tokens and 3 decode steps, card against CPU
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN, LM_CHECK_FROM = (
+    "moonshot-v1-16b-a3b", 4, 2048, 16, 2032)
+LM_RED_BATCH, LM_RED_LEN, LM_RED_DECODES = 2, 32, 3
+#: float32 logits of one computation on two devices or two row counts:
+#: the card's against the CPU's (reduced configs), a prefill's last
+#: position against the forward's
+LM_REDUCED_TOL = 1e-4
+#: bf16 logits of decode against the teacher-forced forward, absolute,
+#: and the planted faults that must go over it (``lm_teacher_forced``).
+#: On an H100 the sound reading is 0.370, position + 1 gives 0.538 and a
+#: zeroed K/V 0.415, too near to hold: the float32 check below holds it
+LM_BF16_TOL, LM_BF16_FAULTS = 0.45, ("pos",)
+#: the same check at full width in float32 on LM_F32_LAYERS layers, where
+#: both planted faults must go over LM_F32_TOL (H100: sound 1.2e-5, the
+#: faults 0.51-0.72 at their worst step)
+LM_F32_LAYERS, LM_F32_TOL = 4, 1e-4
 DEVICE = "cuda"
 
 SOURCES = {
@@ -3461,64 +3511,502 @@ def telemetry_vs_plain(torch, np, rs, table, cov, experts, tok, ns,
                        shard_sketch, shard, merged, est):
     """Phase 9t's kernels against their plain versions on the phase's own
     inputs, after its counts are taken (these launches are not the
-    path's): the routing table (6,291,456 keys into 64 rows) byte for
-    byte against the plain accumulate on the card; the ertl_stats
-    histograms of all 2,016 expert pairs bit for bit; the (s, z) behind
-    ``coverage`` (64 rows at p=10) and ``distinct`` (one row at p=12)
-    with ``z`` exact and ``s`` within ``rtol=1e-6``, phase 4's estimate
-    tolerance, and the coverage within the same rtol of the estimate
-    from the plain (s, z); one n-gram shard's sketch byte for byte
-    against the same update on the CPU, where the hash and the
-    accumulate run their plain versions."""
-    from repro_torch.core.hll import estimate_from_stats
-    from repro_torch.kernels import ertl_stats, hll_accumulate, hll_estimate
+    path's): the routing table (6,291,456 keys into 64 rows) as
+    ``routing_vs_plain`` holds it; the (s, z) behind ``distinct`` (one
+    row at p=12) as ``estimate_vs_plain`` holds it; one n-gram shard's
+    sketch byte for byte against the same update on the CPU, where the
+    hash and the accumulate run their plain versions."""
+    routing = routing_vs_plain(torch, np, "telemetry", rs.cfg, table, cov,
+                               experts.reshape(-1),
+                               tok.repeat_interleave(TEL_TOPK))
+    distinct = estimate_vs_plain(torch, "telemetry", "distinct",
+                                 merged.reshape(1, -1), ns.cfg,
+                                 torch.tensor([est], device=merged.device))
+    cpu = ns.update(ns.init("cpu"), shard)
+    if not torch.equal(shard_sketch.cpu(), cpu):
+        fail("telemetry: an n-gram shard sketch differs from the same "
+             "update on the CPU")
+    log(f"telemetry: kernels vs plain on the phase's inputs: {routing}; "
+        f"(s, z) {distinct}, the n-gram shard sketch of {shard.size} tokens "
+        f"equal to the CPU's")
 
-    cfg = rs.cfg
-    rows = experts.reshape(-1).to(torch.int32)
-    keys = tok.repeat_interleave(TEL_TOPK).to(torch.int32).view(torch.uint32)
+
+def estimate_vs_plain(torch, tag, what, regs, cfg, got):
+    """The (s, z) of ``regs`` from ``hll_estimate_stats`` against its
+    plain version, ``z`` exact and ``s`` within ``rtol=1e-6`` (phase 4's
+    estimate tolerance), and the estimates ``got`` within the same rtol of
+    the estimate from the plain (s, z). Returns the text for a log line."""
+    from repro_torch.core.hll import estimate_from_stats
+    from repro_torch.kernels import hll_estimate
+
+    sz_k = hll_estimate.hll_estimate_stats(regs)
+    sz_p = hll_estimate.plain(regs)
+    from_plain = estimate_from_stats(sz_p[:, 0], sz_p[:, 1], cfg)
+    if not (torch.equal(sz_k[:, 1], sz_p[:, 1])
+            and torch.allclose(sz_k[:, 0], sz_p[:, 0], rtol=1e-6, atol=0)
+            and torch.allclose(got.to(from_plain.dtype), from_plain,
+                               rtol=1e-6, atol=0)):
+        fail(f"{tag}: the (s, z) behind {what} differ from the plain "
+             f"estimate's")
+    return (f"{what} {regs.shape[0]} x {regs.shape[1]} max abs err "
+            f"{float((sz_k - sz_p).abs().max())}")
+
+
+def routing_vs_plain(torch, np, tag, cfg, table, cov, rows, keys):
+    """A ``RoutingSketch``'s kernels against their plain versions on the
+    path's own inputs, after its counts are taken (these launches are not
+    the path's): ``table`` byte for byte against the plain accumulate of
+    ``keys`` into ``rows`` on the card; ``ertl_stats`` over every pair of
+    rows bit for bit (the pairs ``collapse_score`` sends); the (s, z)
+    behind ``coverage`` as ``estimate_vs_plain`` holds them. Returns the
+    text for a log line."""
+    from repro_torch.kernels import ertl_stats, hll_accumulate
+
+    rows = rows.reshape(-1).to(torch.int32)
+    keys = keys.reshape(-1).to(torch.int32).view(torch.uint32)
     want, t_acc = timed(torch, lambda: hll_accumulate.plain(
         torch.zeros_like(table), rows, keys, p=cfg.p, seed=cfg.seed))
     if not torch.equal(table, want):
-        fail(f"telemetry: the routing table differs from the plain "
-             f"accumulate in {int((table != want).sum())} registers")
+        fail(f"{tag}: the routing table differs from the plain accumulate "
+             f"in {int((table != want).sum())} registers")
     del rows, keys, want
 
-    i, j = np.triu_indices(TEL_EXPERTS, k=1)
+    i, j = np.triu_indices(table.shape[0], k=1)
     idx = torch.from_numpy(np.stack([i, j])).to(table.device)
     a, b = table[idx[0]].contiguous(), table[idx[1]].contiguous()
     st_k = ertl_stats.ertl_stats(a, b, cfg.q)
     st_p, t_ertl = timed(torch, lambda: ertl_stats.plain(a, b, cfg.q))
     if not torch.equal(st_k, st_p):
-        fail(f"telemetry: ertl_stats differs from its plain version on the "
+        fail(f"{tag}: ertl_stats differs from its plain version on the "
              f"{len(i)} expert pairs (max abs err "
              f"{float((st_k - st_p).abs().max())})")
+    cov_text = estimate_vs_plain(torch, tag, "coverage", table, cfg, cov)
+    return (f"routing table {table.shape[0]} x {table.shape[1]} equal byte "
+            f"for byte (plain accumulate {t_acc * 1e3:.2f} ms), ertl_stats "
+            f"on {len(i)} pairs equal bit for bit (plain "
+            f"{t_ertl * 1e3:.2f} ms), (s, z) {cov_text}")
 
-    errs = []
-    for what, regs, rcfg, got in (
-            ("coverage", table, cfg, cov),
-            ("distinct", merged.reshape(1, -1), ns.cfg,
-             torch.tensor([est], device=merged.device))):
-        sz_k = hll_estimate.hll_estimate_stats(regs)
-        sz_p = hll_estimate.plain(regs)
-        from_plain = estimate_from_stats(sz_p[:, 0], sz_p[:, 1], rcfg)
-        if not (torch.equal(sz_k[:, 1], sz_p[:, 1])
-                and torch.allclose(sz_k[:, 0], sz_p[:, 0], rtol=1e-6, atol=0)
-                and torch.allclose(got.to(from_plain.dtype), from_plain,
-                                   rtol=1e-6, atol=0)):
-            fail(f"telemetry: the (s, z) behind {what} differ from the "
-                 f"plain estimate's")
-        errs.append(f"{what} {regs.shape[0]} x {regs.shape[1]} max abs err "
-                    f"{float((sz_k - sz_p).abs().max())}")
 
-    cpu = ns.update(ns.init("cpu"), shard)
-    if not torch.equal(shard_sketch.cpu(), cpu):
-        fail("telemetry: an n-gram shard sketch differs from the same "
-             "update on the CPU")
-    log(f"telemetry: kernels vs plain on the phase's inputs: routing table "
-        f"equal byte for byte (plain accumulate {t_acc * 1e3:.2f} ms), "
-        f"ertl_stats on {len(i)} pairs equal bit for bit (plain "
-        f"{t_ertl * 1e3:.2f} ms), (s, z) {'; '.join(errs)}, the n-gram "
-        f"shard sketch of {shard.size} tokens equal to the CPU's")
+# ------------------------------------------------------------ LM serving
+def lm_reduced_archs(torch, np):
+    """Phase 9m, part 1: every arch at ``reduced()`` in float32,
+    ``models.parity.logits_on_both`` (the check the card tests run): the
+    same weights (drawn on the CPU from seed 0, carried to the card by
+    ``models.convert``) and seeded inputs on both devices, the prefill's
+    logits, then 3 greedy decode steps fed the CPU's tokens (an int8
+    cache carried from the CPU before each step); the card's logits
+    within ``LM_REDUCED_TOL`` of the CPU's. Returns the largest error."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.parity import logits_on_both
+
+    worst, lines = 0.0, []
+    for name in sorted(ARCHS):
+        steps = logits_on_both(ARCHS[name].reduced(), DEVICE,
+                               batch=LM_RED_BATCH, length=LM_RED_LEN,
+                               decodes=LM_RED_DECODES, seed=SEED,
+                               data_seed=SEED)
+        if not all(torch.isfinite(got).all() for _, got in steps):
+            fail(f"models: {name}: non-finite logits on the card")
+        errs = [float((want - got).abs().max()) for want, got in steps]
+        worst = max(worst, max(errs))
+        lines.append(f"{name} {max(errs):.2e}")
+        if max(errs) > LM_REDUCED_TOL:
+            fail(f"models: {name} reduced: card logits differ from the "
+                 f"CPU's by {max(errs):.3e} (prefill, 3 decodes: {errs})")
+    log(f"models: reduced configs, card vs CPU in float32 (TF32 off), "
+        f"prefill + {LM_RED_DECODES} decode logits max abs err: "
+        f"{', '.join(lines)} (tolerance {LM_REDUCED_TOL})")
+    return worst
+
+
+def _margin_ok(logits, got_tok, tol):
+    """The greedy token equal to ``logits``' argmax in every row whose
+    top-2 margin exceeds ``tol``; returns (rows checked, rows equal)."""
+    top2 = logits.topk(2, dim=-1).values
+    sure = (top2[:, 0] - top2[:, 1] > tol).cpu().numpy()
+    same = (logits.argmax(-1).cpu() == got_tok.cpu()).numpy()
+    return int(sure.sum()), bool(same[sure].all())
+
+
+def _teacher_forced(torch, tfm, model, cfg, tokens, cache, want, fault):
+    """4 decode steps of the prompt's tokens after ``LM_CHECK_FROM`` from
+    ``cache`` (a prefill of the first ``LM_CHECK_FROM``, written in place)
+    against ``want`` (the forward's logits there): (max abs err by step,
+    root mean square error, greedy tokens equal to the forward's, the
+    logits). ``fault`` plants a fault the check must see: "pos" tells each
+    step its position + 1 (RoPE and the cache slot off by one); "drop"
+    zeroes the previous position's K/V in every layer before each step."""
+    got = []
+    for i in range(4):
+        pos = LM_CHECK_FROM + i
+        if fault == "drop":
+            for c in cache["blocks"]:
+                c["k"][:, pos - 1] = 0
+                c["v"][:, pos - 1] = 0
+        got.append(tfm.decode_step(model, cfg, tokens[:, pos:pos + 1], cache,
+                                   pos + (fault == "pos"))[0])
+    got = torch.stack(got, dim=1)
+    diff = got - want
+    errs = [float(diff[:, i].abs().max()) for i in range(4)]
+    rms = float(diff.double().pow(2).mean().sqrt())
+    agree = int((got.argmax(-1) == want.argmax(-1)).sum())
+    return errs, rms, agree, got
+
+
+def lm_moonlight(torch, np):
+    """Phase 9m, part 2: Moonlight-16B-A3B at full width in bf16 on the
+    card, weights drawn on the card from seed 0 one tensor at a time;
+    4 x 2,048 SyntheticCorpus prompts (MoE capacity 961 in the prefill),
+    ``make_prefill_step`` and 16 greedy ``make_decode_step`` calls, with
+    the checks and times of the module docstring. Returns (the model,
+    the prompts) for the telemetry part."""
+    from repro_torch.analysis.roofline import HW
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.steps import make_decode_step, make_prefill_step
+
+    cfg = ARCHS[LM_ARCH]
+    t0 = time.perf_counter()
+    model = tfm.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
+                            cfg, DEVICE)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    log(f"models: {LM_ARCH} at full width ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.num_experts} experts top "
+        f"{cfg.num_experts_per_tok}, vocabulary {cfg.vocab_size}), bf16: "
+        f"{n_params / 1e9:.3f} B parameters, {w_bytes / 2**30:.2f} GiB, "
+        f"init {t_init:.2f} s on the card (seed {SEED})")
+
+    t0 = time.perf_counter()
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seq_len=LM_PROMPT,
+                             global_batch=LM_BATCH, seed=SEED)
+    tokens = torch.from_numpy(corpus.batch(0)["tokens"]).to(DEVICE)
+    t_corpus = time.perf_counter() - t0
+    s_cache = LM_PROMPT + LM_GEN + 8
+    cache = tfm.init_cache(cfg, LM_BATCH, s_cache, DEVICE)
+    cap = max(int(LM_BATCH * LM_PROMPT // cfg.num_experts
+                  * cfg.num_experts_per_tok * cfg.capacity_factor) + 1,
+              cfg.num_experts_per_tok)
+
+    # the prefill's last logits against the forward's, exactly: the same
+    # products on the same rows (one warm-up each)
+    logits, _ = tfm.prefill(model, cfg, tokens, cache)
+    hidden, _ = tfm.forward_hidden(model, cfg, tokens)
+    fwd_last = tfm.lm_logits(model, cfg, hidden[:, -1])
+    del hidden
+    if not (torch.isfinite(logits).all() and torch.equal(logits, fwd_last)):
+        fail(f"models: prefill's last logits differ from the forward's by "
+             f"{float((logits - fwd_last).abs().max())}")
+
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+    (tok, cache), t_prefill = timed(
+        torch, lambda: prefill(model, {"tokens": tokens}, cache))
+    if not torch.equal(tok, logits.argmax(-1).to(tok.dtype)):
+        fail("models: make_prefill_step's tokens are not the argmax of the "
+             "prefill's logits")
+    tok = tok[:, None]
+    # each MoE layer's expert ids are kept (a list append a layer, no
+    # synchronize) for the routed-expert bound
+    routed, moe_ffn = [], moe.moe_ffn
+
+    def recording(p, x, c):
+        out = moe_ffn(p, x, c)
+        routed.append(out[2])
+        return out
+
+    out, ms = [tok], []
+    moe.moe_ffn = recording
+    try:
+        for i in range(LM_GEN):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            tok, cache = decode(model, tok, cache, LM_PROMPT + i)
+            end.record()
+            out.append(tok)
+            ms.append((start, end))
+    finally:
+        moe.moe_ffn = moe_ffn
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(b) for a, b in ms]
+    gen = torch.cat(out, dim=1)
+    if not (gen.shape == (LM_BATCH, LM_GEN + 1) and int(gen.min()) >= 0
+            and int(gen.max()) < cfg.vocab_padded):
+        fail(f"models: generated tokens {tuple(gen.shape)} outside "
+             f"[0, {cfg.vocab_padded})")
+    kv_bytes = sum(t.numel() * t.element_size()
+                   for c in cache["blocks"] for t in c.values())
+    del cache
+    med = statistics.median(ms)
+    n_tok = LM_BATCH * LM_PROMPT
+    log(f"models: prefill {LM_BATCH} x {LM_PROMPT} tokens (MoE capacity "
+        f"{cap} an expert): {t_prefill:.3f} s, {n_tok / t_prefill:.0f} "
+        f"tokens/s (host clock ending in a synchronize, after one warm "
+        f"prefill and one forward); corpus {t_corpus:.2f} s on the host; "
+        f"last logits equal to lm_logits(forward_hidden)[:, -1]")
+    log(f"models: decode {LM_GEN} greedy steps of {LM_BATCH} tokens: median "
+        f"{med:.3f} ms a step (min {min(ms):.3f}, max {max(ms):.3f}; CUDA "
+        f"events), {LM_BATCH * 1e3 / med:.1f} tokens/s")
+    lm_decode_bounds(torch, model, cfg, w_bytes, kv_bytes, s_cache, routed,
+                     ms, HW().hbm_bw)
+    del routed
+
+    lm_teacher_forced(torch, model, cfg, tokens, LM_BF16_TOL, LM_BF16_FAULTS)
+    return model, tokens
+
+
+def lm_teacher_forced(torch, model, cfg, tokens, tol, must_see):
+    """A prefill of the first ``LM_CHECK_FROM`` tokens, then decode of the
+    next 4, against the forward over all the prompt, with the MoE capacity
+    raised so that no token is dropped (drops depend on a batch's token
+    count, so the two would drop different tokens otherwise): the
+    prefill's logits within ``LM_REDUCED_TOL`` of the forward's at its
+    last position (the same hidden state; the float32 head's product
+    differs in its accumulation order), each decode step's within ``tol``
+    (max abs err), and the greedy tokens equal where the forward's top-2
+    margin exceeds ``tol``. The same 4 steps with a planted fault
+    (``_teacher_forced``) must go over ``tol`` for every fault in
+    ``must_see``; the others are reported."""
+    from dataclasses import replace
+
+    from repro_torch.models import transformer as tfm
+
+    e, k = cfg.num_experts, cfg.num_experts_per_tok
+    nodrop = replace(cfg, capacity_factor=e / k * (1 + 1e-6))
+    hidden, _ = tfm.forward_hidden(model, nodrop, tokens)
+    want = tfm.lm_logits(model, nodrop,
+                         hidden[:, LM_CHECK_FROM - 1:LM_CHECK_FROM + 4])
+    del hidden
+    cache = tfm.init_cache(nodrop, LM_BATCH, LM_CHECK_FROM + 8, DEVICE)
+    first, cache = tfm.prefill(model, nodrop, tokens[:, :LM_CHECK_FROM],
+                               cache)
+    err_first = float((first - want[:, 0]).abs().max())
+    runs = {}
+    for fault in ("pos", "drop", None):
+        c = cache if fault is None else {"blocks": [
+            {n: t.clone() for n, t in b.items()} for b in cache["blocks"]]}
+        runs[fault] = _teacher_forced(torch, tfm, model, nodrop, tokens, c,
+                                      want[:, 1:], fault)
+        del c
+    del cache
+    errs, rms, agree, got = runs[None]
+    checked, same = 0, True
+    for i in range(4):
+        n, ok = _margin_ok(want[:, 1 + i], got[:, i].argmax(-1), tol)
+        checked, same = checked + n, same and ok
+    label = (f"{cfg.dtype}, {cfg.num_layers} layers, d_model {cfg.d_model}, "
+             f"{e} experts")
+    rows = 4 * LM_BATCH
+    log(f"models: teacher-forced ({label}): prefill of {LM_CHECK_FROM} "
+        f"(max abs err {err_first:.3e} against the forward there; "
+        f"tolerance {LM_REDUCED_TOL}) then 4 decode steps vs the forward "
+        f"over {LM_PROMPT} (no capacity drops; logits up to "
+        f"{float(want.abs().max()):.2f}): max abs err by step "
+        f"{[f'{x:.3e}' for x in errs]}, rms {rms:.3e}, greedy tokens equal "
+        f"in {agree} of {rows}; tolerance {tol} on the max; {checked} of "
+        f"{rows} rows have a top-2 margin above it")
+    faults = {"pos": "each step told its position + 1",
+              "drop": "the previous position's K/V zeroed"}
+    for fault, what in faults.items():
+        f_errs, f_rms, f_agree, _ = runs[fault]
+        log(f"models: teacher-forced ({label}), planted fault, {what}: max "
+            f"abs err by step {[f'{x:.3e}' for x in f_errs]}, rms "
+            f"{f_rms:.3e}, greedy tokens equal in {f_agree} of {rows} "
+            f"({'must exceed' if fault in must_see else 'reported;'} "
+            f"tolerance {tol})")
+    if not torch.isfinite(got).all():
+        fail("models: non-finite logits in the teacher-forced check")
+    if err_first > LM_REDUCED_TOL:
+        fail(f"models: the prefill of {LM_CHECK_FROM} tokens differs from "
+             f"the forward at its last position by {err_first}")
+    if max(errs) > tol:
+        fail(f"models: decode differs from the teacher-forced forward by "
+             f"{max(errs)} ({label})")
+    if not same:
+        fail(f"models: a greedy token differs from the forward's where its "
+             f"top-2 margin exceeds {tol} ({label})")
+    for fault in must_see:
+        if max(runs[fault][0]) <= tol:
+            fail(f"models: the teacher-forced check ({label}) does not see "
+                 f"a planted fault ({faults[fault]}: max abs err "
+                 f"{max(runs[fault][0])} within {tol})")
+
+
+def lm_float32_check(torch):
+    """Phase 9m, part 2b: the teacher-forced check at full width in
+    float32 (TF32 off), where rounding cannot hide a fault: Moonlight-
+    16B-A3B cut to ``LM_F32_LAYERS`` layers, weights drawn on the card
+    from seed 0, the same prompts; held at ``LM_F32_TOL``, and both
+    planted faults must go over it."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.models import transformer as tfm
+
+    cfg = replace(ARCHS[LM_ARCH], dtype="float32", num_layers=LM_F32_LAYERS)
+    model = tfm.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
+                            cfg, DEVICE)
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seq_len=LM_PROMPT,
+                             global_batch=LM_BATCH, seed=SEED)
+    tokens = torch.from_numpy(corpus.batch(0)["tokens"]).to(DEVICE)
+    lm_teacher_forced(torch, model, cfg, tokens, LM_F32_TOL, ("pos", "drop"))
+    del model, tokens
+
+
+def lm_decode_bounds(torch, model, cfg, w_bytes, kv_bytes, s_cache, routed,
+                     ms, hbm_bw):
+    """Print the decode step's two bytes bounds over ``hbm_bw`` and the
+    share of each that the median step reaches: the reference's dispatch
+    (every weight but the embedding table, the 64 experts of every layer
+    included, plus the whole KV cache), and the least the step's output
+    needs (every weight but the embedding and the experts, the experts
+    the step's routers picked, each read once a layer, and the KV cache
+    up to the step's position). ``routed``: the expert ids of every MoE
+    layer of every timed step, in order."""
+    import torch.nn.functional as F
+
+    embed = model.embed.w.numel() * model.embed.w.element_size()
+    one_expert = sum(t[0].numel() * t.element_size()
+                     for t in (model.blocks[0].ffn.gate,
+                               model.blocks[0].ffn.up,
+                               model.blocks[0].ffn.down))
+    layers = len(routed) // len(ms)
+    experts = layers * cfg.num_experts * one_expert
+    ids = torch.stack(routed).long().reshape(len(ms), layers, -1)
+    picked = (F.one_hot(ids, cfg.num_experts).sum(dim=2) > 0).sum(
+        dim=(1, 2)).cpu()
+    kv_slot = kv_bytes / s_cache
+    all_b = (w_bytes - embed + kv_bytes) / hbm_bw * 1e3
+    routed_b = [(w_bytes - embed - experts + int(n) * one_expert
+                 + kv_slot * (LM_PROMPT + i + 1)) / hbm_bw * 1e3
+                for i, n in enumerate(picked)]
+    med = statistics.median(ms)
+    r_med = statistics.median(routed_b)
+    log(f"models: decode bound, every expert (the reference's dispatch): "
+        f"{all_b:.3f} ms a step ({(w_bytes - embed) / 1e9:.2f} GB of "
+        f"weights but the embedding, the {experts / 1e9:.2f} GB of all "
+        f"{cfg.num_experts} experts in {layers} layers included, plus the "
+        f"{kv_bytes / 1e9:.2f} GB KV cache, over {hbm_bw / 1e12:.2f} TB/s); "
+        f"the median step reaches {100 * all_b / med:.1f}% of it")
+    log(f"models: decode bound, routed experts only: median {r_med:.3f} ms "
+        f"a step ({min(routed_b):.3f}-{max(routed_b):.3f}; "
+        f"{int(picked.min())}-{int(picked.max())} distinct experts a step "
+        f"over {layers} layers, at most "
+        f"{min(cfg.num_experts, LM_BATCH * cfg.num_experts_per_tok)} a layer, {one_expert / 1e6:.2f} MB each; the non-expert weights "
+        f"{(w_bytes - embed - experts) / 1e9:.2f} GB; the KV cache up to "
+        f"the step's position); the median step reaches "
+        f"{100 * r_med / med:.1f}% of it")
+
+
+def lm_routing(torch, np, model, tokens):
+    """Phase 9m, part 3: the served prompts' routing into RoutingSketch,
+    as ``examples/expert_telemetry.py`` does: ``embed_lookup``, the first
+    MoE layer's ``moe_ffn``, ``RoutingSketch(64, HLLConfig(p=10))`` over
+    the 8,192 x 6 assignments; coverage against ``torch.unique`` counts
+    (within 3 x rel_std), ``collapse_score``'s 2,016 pairs from one
+    ``ertl_stats`` launch. Returns (the sketch's config, its table, its
+    coverage, the expert ids, the token ids) for ``routing_vs_plain``."""
+    from repro_torch.core.hll import HLLConfig, rel_std
+    from repro_torch.data.telemetry import RoutingSketch
+    from repro_torch.kernels import _build
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+
+    cfg = model.cfg
+    x = tfm.embed_lookup(model, cfg, tokens)
+    _, _, ids = moe.moe_ffn(model.blocks[0].ffn, x, cfg)
+    tok = tokens.reshape(-1)
+    rs = RoutingSketch(cfg.num_experts, HLLConfig(p=TEL_P_ROUTING))
+    table, t_up = timed(torch, lambda: rs.update(rs.init(DEVICE), ids, tok))
+    cov, t_cov = timed(torch, lambda: rs.coverage(table))
+    before = _build.launch_counts()["ertl_stats"]
+    jac, t_jac = timed(torch, lambda: rs.collapse_score(table))
+    ertl = _build.launch_counts()["ertl_stats"] - before
+    k = cfg.num_experts_per_tok
+    keys = torch.unique(ids.reshape(-1).long() * cfg.vocab_padded
+                        + tok.long().repeat_interleave(k))
+    exact = torch.bincount(keys // cfg.vocab_padded,
+                           minlength=cfg.num_experts).double()
+    rel = ((cov.double() - exact).abs() / exact.clamp(min=1)).cpu()
+    log(f"models: routing telemetry: {ids.numel()} assignments of "
+        f"{tok.numel()} served tokens (layer 0's router) into "
+        f"RoutingSketch({cfg.num_experts}, p={TEL_P_ROUTING}): update "
+        f"{t_up * 1e3:.2f} ms, coverage {t_cov * 1e3:.2f} ms, collapse_score "
+        f"{t_jac * 1e3:.2f} ms (ertl_stats launched {ertl} time(s)); exact "
+        f"distinct {int(exact.min())}-{int(exact.max())} an expert, coverage "
+        f"relative error max {float(rel.max()):.4f} (3 x rel_std "
+        f"{3 * rel_std(TEL_P_ROUTING):.4f}); max pairwise Jaccard "
+        f"{float(jac.max()):.4f}")
+    if ertl != 1:
+        fail(f"models: collapse_score launched ertl_stats {ertl} times")
+    if float(rel.max()) >= 3 * rel_std(TEL_P_ROUTING):
+        fail("models: an expert's coverage is outside 3 x rel_std of its "
+             "exact distinct count")
+    if not (jac.shape == (cfg.num_experts, cfg.num_experts)
+            and np.isfinite(jac).all()):
+        fail("models: collapse_score is not a finite E x E matrix")
+    return rs.cfg, table, cov, ids, tok
+
+
+def lm_launcher(torch):
+    """Phase 9m, part 4: ``python -m repro_torch.launch.serve --arch
+    moonshot-v1-16b-a3b`` on the card (its reduced config) exits 0 and
+    prints ``generated``."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", LM_ARCH],
+        capture_output=True, text=True, env=env, cwd=ROOT, timeout=300)
+    line = next((ln for ln in out.stdout.splitlines()
+                 if ln.startswith("generated")), None)
+    if out.returncode != 0 or line is None:
+        fail(f"models: launch.serve exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    log(f"models: python -m repro_torch.launch.serve --arch {LM_ARCH}: "
+        f"{line} ({time.perf_counter() - t0:.1f} s with the process start)")
+
+
+def model_phase(torch, np):
+    """Phase 9m: the LM substrate's serving path, counters zeroed just
+    before; everything freed at its end. Returns the counts."""
+    from repro_torch.kernels import _build
+
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    base = mem_start(torch)
+    _build.reset_launch_counts()
+    lm_reduced_archs(torch, np)
+    model, tokens = lm_moonlight(torch, np)
+    rcfg, table, cov, ids, tok = lm_routing(torch, np, model, tokens)
+    counts = dict(_build.launch_counts())
+    log(f"models: peak {mem_peak(torch, base, [])}")
+    del model, tokens
+    torch.cuda.empty_cache()
+    lm_float32_check(torch)
+    held = routing_vs_plain(torch, np, "models", rcfg, table, cov, ids,
+                            tok.repeat_interleave(ids.shape[1]))
+    log(f"models: kernels vs plain on the served routing: {held}")
+    del table, cov, ids, tok
+    torch.cuda.empty_cache()
+    lm_launcher(torch)
+    log(f"models: phase {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    for k in ("hll_accumulate", "hll_estimate_stats"):
+        if counts[k] == 0:
+            fail(f"models: {k} never launched")
+    if counts["ertl_stats"] != 1:
+        fail(f"models: ertl_stats launched {counts['ertl_stats']} times")
+    return counts
 
 
 def main() -> int:
@@ -3631,6 +4119,7 @@ def main() -> int:
     phases += phases_new + [kron_phase(torch, np)]
     t_new += time.perf_counter() - t0
     phases.append(telemetry_phase(torch, np))
+    phases.append(model_phase(torch, np))
     t0 = time.perf_counter()
     phases.append(small_reference(torch, np))
     log(f"small reference: {time.perf_counter() - t0:.1f} s")

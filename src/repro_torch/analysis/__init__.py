@@ -1,7 +1,10 @@
-"""Analytic cost model of the sketch kernels (port of the sketch half of
-``repro.analysis``): the H100's roofline terms (``roofline``) and the
-per-op HBM-byte and FLOP models (``flops``). The model half of the JAX
-package (per-cell FLOPs of its language models, HLO collective parsing)
-waits for the port's model substrate."""
-from repro_torch.analysis.flops import SKETCH_OPS, sketch_op_costs  # noqa: F401
-from repro_torch.analysis.roofline import HW, roofline_terms  # noqa: F401
+"""Analytic cost model (port of ``repro.analysis``): the H100's roofline
+terms and the model FLOPs of the 6*N*D rule (``roofline``), the
+language models' per-cell FLOPs and bytes and the sketch kernels'
+per-op byte and FLOP models (``flops``). HLO collective parsing
+(``repro.analysis.hlo``) comes with the dry-run slice."""
+from repro_torch.analysis.flops import (  # noqa: F401
+    SKETCH_OPS, CellCosts, cell_bytes, cell_costs, cell_flops,
+    sketch_op_costs)
+from repro_torch.analysis.roofline import (  # noqa: F401
+    HW, active_params, model_flops, roofline_terms)

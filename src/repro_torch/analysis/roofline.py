@@ -15,12 +15,16 @@ link in one direction (the card's 900 GB/s is the sum over its 18 links
 of both directions). The sketch kernels do integer work outside the
 tensor cores, so their compute term is far below their memory term; the
 models (``analysis.flops``) count bytes first.
+
+``model_flops`` is the 6*N*D rule (2*N*D forward-only) with N the
+active parameters (``active_params``: MoE layers count their top-k
+experts only), the reference's formulas.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["HW", "roofline_terms"]
+__all__ = ["HW", "roofline_terms", "model_flops", "active_params"]
 
 
 @dataclass(frozen=True)
@@ -53,3 +57,38 @@ def roofline_terms(flops_per_dev: float, bytes_per_dev: float,
         # being compute-limited
         "compute_fraction": t_comp / bound if bound > 0 else 0.0,
     }
+
+
+def active_params(cfg) -> float:
+    """Active parameter count (MoE: top-k experts only) for 6*N*D."""
+    d, v = cfg.d_model, cfg.vocab_padded
+    total = v * d * (1 if cfg.tie_embeddings else 2)
+    for kind in cfg.layer_pattern:
+        n_layer = cfg.num_periods
+        if "mamba" in kind:
+            di, h, n = cfg.ssm_d_inner, cfg.ssm_heads, cfg.ssm_state
+            total += n_layer * (d * (2 * di + 2 * n + h) + di * d)
+        else:
+            hd = cfg.head_dim
+            total += n_layer * (d * cfg.num_heads * hd
+                                + 2 * d * cfg.num_kv_heads * hd
+                                + cfg.num_heads * hd * d)
+            if cfg.is_enc_dec:  # cross-attention
+                total += n_layer * 2 * (d * cfg.num_heads * hd
+                                        + d * cfg.num_kv_heads * hd)
+        if kind.endswith("_moe") or kind == "attn_moe":
+            total += n_layer * 3 * d * cfg.moe_d_ff * cfg.num_experts_per_tok
+        elif "mamba" != kind and not kind.endswith("_moe"):
+            if cfg.d_ff:
+                total += n_layer * 3 * d * cfg.d_ff
+    if cfg.is_enc_dec:
+        total += cfg.encoder_layers * (4 * d * cfg.num_heads * cfg.head_dim
+                                       + 3 * d * cfg.d_ff)
+    return float(total)
+
+
+def model_flops(cfg, tokens: float, kind: str) -> float:
+    """6*N_active*D (train) / 2*N_active*D (forward-only) useful FLOPs."""
+    n = active_params(cfg)
+    mult = 6.0 if kind == "train" else 2.0
+    return mult * n * tokens

@@ -1683,3 +1683,82 @@ def test_card_sweep_drives_each_candidate_once():
         assert torch.equal(regs, keep)
     finally:
         autotune.clear_cache()
+
+
+# ------------------------------------------------------- LM serving path
+_LM_ARCHS = ["gemma2-9b", "grok-1-314b", "jamba-v0.1-52b", "llava-next-34b",
+             "mamba2-370m", "moonshot-v1-16b-a3b", "phi4-mini-3.8b",
+             "qwen2-1.5b", "qwen2-72b", "whisper-large-v3"]
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 products in full float32 on the card, as on the CPU."""
+    old = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32 = old
+
+
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_model_logits_card_vs_cpu(dev, no_tf32, arch):
+    """Every arch at ``reduced()`` in float32 with the same carried
+    weights: the prefill's logits and 3 greedy decode steps (fed the
+    CPU's tokens) on the card within 1e-4 of the CPU's, which
+    ``tests/test_torch_models.py`` holds against the JAX package
+    (``models.parity.logits_on_both``, which ``chip_smoke.py`` phase 9m
+    also runs)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.parity import logits_on_both
+
+    steps = logits_on_both(ARCHS[arch].reduced(), dev, batch=2, length=32,
+                           decodes=3, seed=0, data_seed=1)
+    assert len(steps) == 4
+    for want, got in steps:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-4,
+                                   atol=1e-4)
+
+
+def test_moe_routing_feeds_the_sketch_kernels(dev, no_tf32):
+    """``moe_ffn``'s expert ids on the card equal the CPU's, and
+    ``RoutingSketch`` over them launches ``hll_accumulate``,
+    ``hll_estimate_stats`` and one ``ertl_stats``, its table equal to the
+    CPU's byte for byte, its coverage within rtol 1e-6, and ``ertl_stats``
+    on every expert pair equal to its plain version bit for bit."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.data.telemetry import RoutingSketch
+    from repro_torch.models import convert, moe
+    from repro_torch.models import transformer as tfm
+
+    cfg = ARCHS["moonshot-v1-16b-a3b"].reduced(num_experts=8,
+                                               num_experts_per_tok=2)
+    cpu = tfm.init_params(torch.Generator().manual_seed(0), cfg, "cpu")
+    gpu = convert.params_from_tree(cfg, convert.params_to_tree(cpu), dev)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 64)))
+    ids = []
+    for m, d in ((cpu, "cpu"), (gpu, dev)):
+        x = tfm.embed_lookup(m, cfg, toks.to(d))
+        ids.append(moe.moe_ffn(m.blocks[0].ffn, x, cfg)[2])
+    assert torch.equal(ids[0], ids[1].cpu())
+    rs = RoutingSketch(cfg.num_experts, HLLConfig(p=10))
+    want = rs.update(rs.init("cpu"), ids[0], toks.reshape(-1))
+    before = dict(_build.launch_counts())
+    table = rs.update(rs.init(dev), ids[1], toks.reshape(-1).to(dev))
+    cov = rs.coverage(table)
+    jac = rs.collapse_score(table)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    assert after["hll_accumulate"] > before["hll_accumulate"]
+    assert after["hll_estimate_stats"] > before["hll_estimate_stats"]
+    assert after["ertl_stats"] == before["ertl_stats"] + 1
+    assert torch.equal(table.cpu(), want)
+    np.testing.assert_allclose(cov.cpu().numpy(),
+                               rs.coverage(want).numpy(), rtol=1e-6)
+    assert jac.shape == (8, 8) and np.isfinite(jac).all()
+    i, j = np.triu_indices(cfg.num_experts, k=1)
+    a = table[torch.from_numpy(i).to(table.device)]
+    b = table[torch.from_numpy(j).to(table.device)]
+    assert torch.equal(ertl_stats.ertl_stats(a, b, rs.cfg.q),
+                       ertl_stats.plain(a, b, rs.cfg.q))
