@@ -248,6 +248,29 @@ Phases, one line each:
    inputs (table byte for byte, ``ertl_stats`` bit for bit, the (s, z)
    behind ``coverage``); then ``python -m repro_torch.launch.serve --arch
    moonshot-v1-16b-a3b`` exits 0 and prints ``generated``;
+9g. LM training, counters zeroed just before, everything freed at its
+   end: Moonlight-16B-A3B at full width cut to ``TR_LAYERS`` = 8 of 48
+   layers (bf16 weights, float32 AdamW moments, remat "full"; 5.24 B
+   parameters, the most one card holds with a step's activations), 8
+   steps of 4 x 2,048 ``SyntheticCorpus(seed=1)`` tokens through
+   ``make_train_step`` and ``train_loop``: step ms (CUDA events, median
+   of steps 2-8), tokens/s, model-FLOP share against 989 TFLOP/s, peak
+   memory, every step's loss and gradient norm, all finite and the last
+   loss below the first; after each step the step's tokens through the
+   trained layer 0's router into ``RoutingSketch(64, p=10)`` and each
+   batch into ``NGramSketch(n=2)`` (as ``examples/expert_telemetry.py``
+   and ``examples/train_lm.py`` do), coverage against ``torch.unique``
+   counts (root mean square within 2 x rel_std, each expert within 4 x),
+   ``collapse_score``;
+   ``hll_accumulate``, ``hll_estimate_stats`` and ``ertl_stats`` must
+   have launched; after the counts are read, the routing's kernels
+   against their plain versions (``routing_vs_plain``), every arch at
+   ``reduced()`` one step card vs CPU in float32 (loss, gradients,
+   updated parameters within 1e-4, ``models.parity.step_mismatches``),
+   ``grad_accum=2`` against 1 within 1e-5, ``compressed_psum`` over 4
+   card tensors equal to the CPU's, and ``python -m
+   repro_torch.launch.train --arch qwen2-1.5b --steps 12 --ckpt-every 5``
+   (the loss falls) then ``--steps 15`` (restores step 10);
 10. small reference: the same queries at RMAT scale 10 on the CPU (plain
     versions) and on the card, which must agree, the top-20 recall of
     the estimated triangle heavy hitters against exact counts (reported),
@@ -330,6 +353,28 @@ LM_BF16_TOL, LM_BF16_FAULTS = 0.45, ("pos",)
 #: both planted faults must go over LM_F32_TOL (H100: sound 1.2e-5, the
 #: faults 0.51-0.72 at their worst step)
 LM_F32_LAYERS, LM_F32_TOL = 4, 1e-4
+#: phase 9g: Moonlight-16B-A3B trained at full width in bf16 (its float32
+#: AdamW moments, remat "full"), depth cut to TR_LAYERS of 48, the most
+#: one card holds: weights, gradients and moments take 12 bytes a
+#: parameter (6.85 GB a layer), and a step's peak on the H100 is 64.83 GiB
+#: at 8 layers while 9 run out of memory in AdamW
+#: (``scripts/profile_lm_train.py --layers``); TR_BATCH x TR_SEQ tokens a
+#: step from SyntheticCorpus(seed=TR_SEED) (MoE capacity 961, as in 9m),
+#: TR_STEPS steps at peak rate TR_LR after one warmup step
+TR_LAYERS, TR_BATCH, TR_SEQ, TR_STEPS, TR_SEED, TR_LR = 8, 4, 2048, 8, 1, 3e-4
+#: gates on the 64 experts' coverage, relative error in units of rel_std:
+#: the root mean square within TR_COV_RMS, and each expert within
+#: TR_COV_MAX (at 3 x rel_std one expert in 64 goes over by chance about
+#: one run in six; 4 x is a broken expert's gate, not a tail's)
+TR_COV_RMS, TR_COV_MAX = 2.0, 4.0
+#: one train step of every reduced arch, card against CPU in float32 (TF32
+#: off) at rate TR_RED_LR: loss, gradients and updated parameters within
+#: TR_RED_TOL (a third of the rate: Adam moves a parameter whose gradient
+#: is at its rounding floor by up to the rate); grad_accum=2 against 1 on
+#: the card within TR_ACCUM_TOL; the launcher's steps before and after its
+#: restart
+TR_RED_LR, TR_RED_TOL, TR_ACCUM_TOL = 3e-4, 1e-4, 1e-5
+TR_LAUNCH_ARCH, TR_LAUNCH_STEPS, TR_LAUNCH_RESUME = "qwen2-1.5b", 12, 15
 DEVICE = "cuda"
 
 SOURCES = {
@@ -4009,6 +4054,290 @@ def model_phase(torch, np):
     return counts
 
 
+# ------------------------------------------------------------- LM training
+def train_moonlight(torch, np):
+    """Phase 9g, part 1: Moonlight-16B-A3B at full width, cut to
+    ``TR_LAYERS`` layers, trained ``TR_STEPS`` steps through
+    ``make_train_step`` and ``train_loop`` (weights from seed 0 on the
+    card, float32 AdamW moments, remat "full"); its routing sketched as
+    ``examples/expert_telemetry.py`` and ``examples/train_lm.py`` do.
+    Returns (the sketch's config, table, coverage, expert ids, token ids)
+    for ``routing_vs_plain``."""
+    from dataclasses import replace
+
+    from repro_torch.analysis.roofline import HW, model_flops
+    from repro_torch.configs import ARCHS
+    from repro_torch.core.hll import HLLConfig, rel_std
+    from repro_torch.data.pipeline import SyntheticCorpus
+    from repro_torch.data.telemetry import NGramSketch, RoutingSketch
+    from repro_torch.models import convert, moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.steps import make_train_step
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.runtime.ft import FTConfig, train_loop
+
+    cfg = replace(ARCHS[LM_ARCH], num_layers=TR_LAYERS)
+    base = mem_start(torch)
+    t0 = time.perf_counter()
+    model = tfm.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
+                            cfg, DEVICE)
+    opt_cfg = AdamWConfig(dtype=cfg.adam_dtype)
+    opt = adamw_init(model, opt_cfg)
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in model.parameters())
+    held = torch.cuda.memory_allocated() - base
+    log(f"train: {LM_ARCH} at full width (d_model {cfg.d_model}, "
+        f"{cfg.num_experts} experts top {cfg.num_experts_per_tok}, "
+        f"vocabulary {cfg.vocab_size}), {TR_LAYERS} of "
+        f"{ARCHS[LM_ARCH].num_layers} layers, {cfg.dtype} weights, "
+        f"{opt_cfg.dtype} AdamW moments, remat {cfg.remat!r}: "
+        f"{n_params / 1e9:.3f} B parameters, weights and moments "
+        f"{held / 2**30:.2f} GiB, init {t_init:.2f} s on the card")
+
+    corpus = SyntheticCorpus(vocab_size=cfg.vocab_size, seq_len=TR_SEQ,
+                             global_batch=TR_BATCH, seed=TR_SEED)
+    rs = RoutingSketch(cfg.num_experts, HLLConfig(p=TEL_P_ROUTING))
+    ngrams = NGramSketch(n=2)
+    sk = {"table": rs.init(DEVICE), "ngrams": ngrams.init(DEVICE)}
+    toks, ids, events, norms = [], [], [], []
+
+    def to_device(b):
+        out = {k: torch.from_numpy(v).to(DEVICE) for k, v in b.items()}
+        sk["ngrams"] = ngrams.update(sk["ngrams"], out["tokens"])
+        toks.append(out["tokens"])
+        return out
+
+    step_fn = make_train_step(cfg, opt_cfg, peak_lr=TR_LR, warmup=1,
+                              total_steps=TR_STEPS)
+
+    def timed_step(params, opt_state, batch, step):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = step_fn(params, opt_state, batch, step)
+        end.record()
+        events.append((start, end))
+        return out
+
+    def on_metrics(step, metrics, dt):
+        # the step's tokens through the trained layer 0's router
+        norms.append(float(metrics["grad_norm"]))
+        with torch.no_grad():
+            x = tfm.embed_lookup(model, cfg, toks[-1])
+            ids.append(moe.moe_ffn(model.blocks[0].ffn, x, cfg)[2])
+        sk["table"] = rs.update(sk["table"], ids[-1], toks[-1].reshape(-1))
+
+    ckpt_dir = ROOT / "build" / "chip_smoke_train"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    t0 = time.perf_counter()
+    model, opt, hist = train_loop(
+        step_fn=timed_step, params=model, opt_state=opt, corpus=corpus,
+        num_steps=TR_STEPS, ft=FTConfig(ckpt_dir=str(ckpt_dir), ckpt_every=0),
+        to_device=to_device, log_every=0, on_metrics=on_metrics,
+        codec=convert.TRAIN_STATE)
+    torch.cuda.synchronize()
+    t_loop = time.perf_counter() - t0
+    ms = [a.elapsed_time(b) for a, b in events]
+    med = statistics.median(ms[1:])
+    n_tok = TR_BATCH * TR_SEQ
+    mfu = model_flops(cfg, n_tok, "train") / (med / 1e3) / HW().peak_flops
+    losses = hist["loss"]
+    log(f"train: {TR_STEPS} steps of {TR_BATCH} x {TR_SEQ} tokens: median "
+        f"{med:.1f} ms a step over steps 2-{TR_STEPS} (CUDA events; first "
+        f"{ms[0]:.1f} ms, min {min(ms[1:]):.1f}, max {max(ms[1:]):.1f}), "
+        f"{n_tok * 1e3 / med:.0f} tokens/s, model-FLOP utilisation "
+        f"{mfu:.4f} ({model_flops(cfg, n_tok, 'train') / 1e12:.2f} TFLOP a "
+        f"step of 6 x active parameters x tokens over "
+        f"{HW().peak_flops / 1e12:.0f} TFLOP/s dense bf16); loop "
+        f"{t_loop:.1f} s with the telemetry; {mem_peak(torch, base, [])}")
+    log(f"train: loss by step {[round(x, 4) for x in losses]}, grad_norm "
+        f"{[round(x, 4) for x in norms]}")
+    if not (len(losses) == TR_STEPS and all(np.isfinite(losses))
+            and all(np.isfinite(norms))):
+        fail(f"train: non-finite loss or gradient norm: {losses}, {norms}")
+    if not losses[-1] < losses[0]:
+        fail(f"train: the loss did not fall: {losses}")
+
+    table, tok = sk["table"], torch.cat(toks).reshape(-1)
+    ids = torch.cat(ids)
+    cov, t_cov = timed(torch, lambda: rs.coverage(table))
+    jac, t_jac = timed(torch, lambda: rs.collapse_score(table))
+    k = cfg.num_experts_per_tok
+    keys = torch.unique(ids.reshape(-1).long() * cfg.vocab_padded
+                        + tok.long().repeat_interleave(k))
+    exact = torch.bincount(keys // cfg.vocab_padded,
+                           minlength=cfg.num_experts).double()
+    rel_all = ((cov.double() - exact).abs() / exact.clamp(min=1)).cpu()
+    rel, rms = float(rel_all.max()), float(rel_all.pow(2).mean().sqrt())
+    pairs = torch.cat([t.reshape(-1, TR_SEQ) for t in toks]).long()
+    bigrams = torch.unique(pairs[:, :-1] * cfg.vocab_padded + pairs[:, 1:])
+    distinct = ngrams.distinct(sk["ngrams"])
+    ng_rel = abs(distinct - bigrams.numel()) / bigrams.numel()
+    log(f"train: routing telemetry of the trained layer 0 over the "
+        f"{TR_STEPS} steps: {ids.numel()} assignments into "
+        f"RoutingSketch({cfg.num_experts}, p={TEL_P_ROUTING}), exact distinct "
+        f"{int(exact.min())}-{int(exact.max())} an expert, coverage relative "
+        f"error root mean square {rms:.4f} (gate {TR_COV_RMS} x rel_std "
+        f"{TR_COV_RMS * rel_std(TEL_P_ROUTING):.4f}), max {rel:.4f} (gate "
+        f"{TR_COV_MAX} x rel_std {TR_COV_MAX * rel_std(TEL_P_ROUTING):.4f}) "
+        f"({t_cov * 1e3:.2f} ms), collapse_score "
+        f"{t_jac * 1e3:.2f} ms, max pairwise Jaccard {float(jac.max()):.4f}; "
+        f"NGramSketch(n=2) {distinct:.0f} distinct bigrams against "
+        f"{bigrams.numel()} exact (relative error {ng_rel:.4f})")
+    if rms >= TR_COV_RMS * rel_std(TEL_P_ROUTING):
+        fail("train: the coverage's root mean square relative error is "
+             f"outside {TR_COV_RMS} x rel_std")
+    if rel >= TR_COV_MAX * rel_std(TEL_P_ROUTING):
+        fail(f"train: an expert's coverage is outside {TR_COV_MAX} x "
+             f"rel_std: {rel_all.tolist()}")
+    if ng_rel >= 3 * rel_std(ngrams.cfg.p):
+        fail("train: the n-gram sketch is outside 3 x rel_std")
+    if not (jac.shape == (cfg.num_experts, cfg.num_experts)
+            and np.isfinite(jac).all()):
+        fail("train: collapse_score is not a finite E x E matrix")
+    del model, opt
+    return rs.cfg, table, cov, ids, tok
+
+
+def train_reduced(torch, np):
+    """Phase 9g, part 2: every arch at ``reduced()`` (grok-1's moments in
+    bfloat16, its ``adam_dtype``), one train step in float32 with TF32
+    off on the card and on the CPU (``models.parity.train_step_on_both``,
+    shared with the card test): loss, every gradient and every updated
+    parameter within ``TR_RED_TOL`` (``models.parity.step_mismatches``:
+    a parameter whose gradient is at its rounding floor, which Adam's
+    first step normalises, within 2 x the rate, at most a thousandth of
+    them); then qwen2-1.5b's step at ``grad_accum=2`` against its
+    ``grad_accum=1`` step on the card within ``TR_ACCUM_TOL``."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.parity import step_mismatches, train_step_on_both
+
+    lines, one = [], None
+    for name in sorted(ARCHS):
+        cpu, gpu = train_step_on_both(ARCHS[name].reduced(), DEVICE,
+                                      peak_lr=TR_RED_LR, seed=SEED,
+                                      data_seed=SEED)
+        errs, bad = step_mismatches(cpu, gpu, TR_RED_TOL)
+        finite = all(torch.isfinite(t).all() for t in
+                     list(gpu["grads"].values())
+                     + list(gpu["params"].values()))
+        lines.append(f"{name} {errs['loss']:.1e}/{errs['grads']:.1e}/"
+                     f"{errs['params']:.1e}/{errs['floor']}"
+                     + (f" ({errs['floor_lr']:.2f} lr)" if errs['floor']
+                        else ""))
+        if bad or not finite:
+            fail(f"train: {name} reduced: the card's step differs from the "
+                 f"CPU's (finite {finite}): {bad[:5]}")
+        if name == TR_LAUNCH_ARCH:
+            one = gpu
+    log(f"train: reduced configs, one step card vs CPU in float32 (TF32 "
+        f"off, rate {TR_RED_LR}), max abs err loss/gradients/parameters, "
+        f"then the parameters beyond {TR_RED_TOL} (floor gradients): "
+        f"{', '.join(lines)}")
+    _, two = train_step_on_both(
+        replace(ARCHS[TR_LAUNCH_ARCH].reduced(), grad_accum=2), DEVICE,
+        peak_lr=TR_RED_LR, seed=SEED, data_seed=SEED)
+    errs, bad = step_mismatches(one, two, TR_ACCUM_TOL)
+    log(f"train: {TR_LAUNCH_ARCH} reduced, grad_accum=2 against 1 on the "
+        f"card: loss {errs['loss']:.1e}, grad_norm {errs['grad_norm']:.1e}, "
+        f"parameters {errs['params']:.1e}, {errs['floor']} beyond "
+        f"{TR_ACCUM_TOL} (tolerance {TR_ACCUM_TOL})")
+    if bad:
+        fail(f"train: grad_accum=2 differs from one microbatch: {bad[:5]}")
+
+
+def train_compressed_psum(torch, np):
+    """Phase 9g, part 3: ``optim.compressed_psum`` over 4 pods' tensors on
+    the card equals the CPU's bit for bit."""
+    from repro_torch.optim import compressed_psum
+
+    x = np.random.default_rng(SEED).normal(size=(4, 1 << 20)).astype(
+        np.float32)
+    want = compressed_psum([torch.from_numpy(r) for r in x])
+    got, t = timed(torch, lambda: compressed_psum(
+        [torch.from_numpy(r).to(DEVICE) for r in x]))
+    if not torch.equal(got.cpu(), want):
+        fail(f"train: compressed_psum on the card differs from the CPU's by "
+             f"{float((got.cpu() - want).abs().max())}")
+    log(f"train: compressed_psum of 4 x {x.shape[1]} float32 on the card "
+        f"equal to the CPU's bit for bit ({t * 1e3:.2f} ms)")
+
+
+def train_launcher(torch):
+    """Phase 9g, part 4: ``python -m repro_torch.launch.train --arch
+    qwen2-1.5b --steps 12 --ckpt-every 5`` on the card (its reduced
+    config): the loss falls; a second run to 15 steps restores step 10
+    and resumes. The directory is removed."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    ckpt_dir = ROOT / "build" / "chip_smoke_train_launch"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    outs = []
+    try:
+        for steps in (TR_LAUNCH_STEPS, TR_LAUNCH_RESUME):
+            t0 = time.perf_counter()
+            out = subprocess.run(
+                [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                 TR_LAUNCH_ARCH, "--steps", str(steps), "--ckpt-every", "5",
+                 "--ckpt-dir", str(ckpt_dir)],
+                capture_output=True, text=True, env=env, cwd=ROOT,
+                timeout=300)
+            line = next((ln for ln in out.stdout.splitlines()
+                         if ln.startswith("final loss")), None)
+            if out.returncode != 0 or line is None:
+                fail(f"train: launch.train exited {out.returncode}: "
+                     f"{out.stderr[-2000:]}")
+            outs.append((out.stdout, line, time.perf_counter() - t0))
+        saved = sorted(os.listdir(ckpt_dir))
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    last, first = outs[0][1][len("final loss: "):].split(")")[0].split(
+        " (first: ")
+    if not float(last) < float(first):
+        fail(f"train: launch.train's loss did not fall: {outs[0][1]}")
+    if ("restored from step 10" not in outs[1][0]
+            or saved != ["step_10", "step_5"]):
+        fail(f"train: the second launch.train did not resume from step 10 "
+             f"({saved}): {outs[1][0][-500:]}")
+    log(f"train: python -m repro_torch.launch.train --arch {TR_LAUNCH_ARCH} "
+        f"--steps {TR_LAUNCH_STEPS} --ckpt-every 5: {outs[0][1]} "
+        f"({outs[0][2]:.1f} s with the process start); --steps "
+        f"{TR_LAUNCH_RESUME}: restored from step 10, {outs[1][1]} "
+        f"({outs[1][2]:.1f} s)")
+
+
+def train_phase(torch, np):
+    """Phase 9g: the LM training path, counters zeroed just before;
+    everything freed at its end. Returns the counts."""
+    from repro_torch.kernels import _build
+
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    rcfg, table, cov, ids, tok = train_moonlight(torch, np)
+    counts = dict(_build.launch_counts())
+    torch.cuda.empty_cache()
+    held = routing_vs_plain(torch, np, "train", rcfg, table, cov, ids,
+                            tok.repeat_interleave(ids.shape[1]))
+    log(f"train: kernels vs plain on the trained model's routing: {held}")
+    del table, cov, ids, tok
+    train_reduced(torch, np)
+    train_compressed_psum(torch, np)
+    train_launcher(torch)
+    log(f"train: phase {time.perf_counter() - t_phase:.1f} s, launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    for k in ("hll_accumulate", "hll_estimate_stats", "ertl_stats"):
+        if counts[k] == 0:
+            fail(f"train: {k} never launched")
+    return counts
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -4120,6 +4449,7 @@ def main() -> int:
     t_new += time.perf_counter() - t0
     phases.append(telemetry_phase(torch, np))
     phases.append(model_phase(torch, np))
+    phases.append(train_phase(torch, np))
     t0 = time.perf_counter()
     phases.append(small_reference(torch, np))
     log(f"small reference: {time.perf_counter() - t0:.1f} s")

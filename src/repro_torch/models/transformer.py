@@ -5,8 +5,18 @@ The JAX package stacks each pattern position's parameters over the
 periods and scans them. Here :class:`Transformer` holds its blocks in
 layer order: ``blocks[i * period + j]`` is period ``i``, pattern position
 ``j`` (``models.convert`` maps one form onto the other). There is no
-remat, which is training, and no activation-sharding hint (``pshard``),
-which belongs to the sharding slice.
+activation-sharding hint (``pshard``), which belongs to the sharding
+slice.
+
+Remat (``cfg.remat``, the reference's ``_remat``) wraps each period of
+the decoder stack and each encoder block in a non-reentrant
+``torch.utils.checkpoint`` when gradients are being taken (grad mode on
+and a parameter that requires them): ``"full"`` saves only the period's
+input, as ``save_only_these_names("block_in")`` does; ``"dots"`` also
+saves the outputs of the matrix products (``aten.mm``, ``bmm``,
+``addmm``) and recomputes the rest, as ``checkpoint_dots`` does;
+``"none"`` saves everything. Prefill and decode never checkpoint: they
+write caches in place, and a recomputed block must write nothing.
 
 Forward surfaces:
   init_params(gen, cfg, device)               -> Transformer
@@ -24,8 +34,12 @@ cross-attended (whisper) or prepended (llava).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.kernels.inputs import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -40,7 +54,7 @@ from repro_torch.models.layers import (
 __all__ = [
     "Block", "Encoder", "Transformer", "init_params", "forward_hidden",
     "init_cache", "prefill", "decode_step", "encode", "lm_logits",
-    "embed_lookup",
+    "embed_lookup", "taking_grads",
 ]
 
 
@@ -122,6 +136,41 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# remat
+# ---------------------------------------------------------------------------
+
+def taking_grads(params) -> bool:
+    """Whether a forward now builds a graph for gradients: grad mode on
+    and a parameter of ``params`` that requires them."""
+    return torch.is_grad_enabled() and any(p.requires_grad
+                                           for p in params.parameters())
+
+
+_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+             torch.ops.aten.addmm.default)
+
+
+def _save_products(ctx, op, *args, **kwargs):
+    """``checkpoint_dots``: keep the matrix products, recompute the rest."""
+    if op in _PRODUCTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, cfg: ModelConfig):
+    """``fn`` under ``cfg.remat`` (the reference's ``_remat``)."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts,
+                                         _save_products))
+    # "full": only the inputs (the period's x and aux) are kept
+    return functools.partial(checkpoint, fn, use_reentrant=False)
+
+
+# ---------------------------------------------------------------------------
 # embeddings and logits
 # ---------------------------------------------------------------------------
 
@@ -173,15 +222,20 @@ def encode(params, cfg: ModelConfig, frames):
     x = frames.to(dtype_of(cfg.dtype))
     x = x + _sinusoidal(x.shape[1], cfg.d_model, x.device).to(x.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
+    grads = taking_grads(params)
     for p in params.encoder.blocks:
-        q, k, v = attn_mod._project_qkv(p.mixer, rmsnorm(p.norm1, x), cfg,
-                                        None)
-        out = attn_mod.attention_core(q, k, v, cfg, causal=False,
-                                      window=None, q_positions=positions,
-                                      k_positions=positions)
-        x = x + dense(p.mixer.o, out.reshape(x.shape[0], x.shape[1], -1))
-        x = x + swiglu(p.ffn, rmsnorm(p.norm2, x))
+        body = functools.partial(_encoder_block, p, cfg, positions)
+        x = (_remat(body, cfg) if grads else body)(x)
     return rmsnorm(params.encoder.final_norm, x)
+
+
+def _encoder_block(p: Block, cfg, positions, x):
+    q, k, v = attn_mod._project_qkv(p.mixer, rmsnorm(p.norm1, x), cfg, None)
+    out = attn_mod.attention_core(q, k, v, cfg, causal=False, window=None,
+                                  q_positions=positions,
+                                  k_positions=positions)
+    x = x + dense(p.mixer.o, out.reshape(x.shape[0], x.shape[1], -1))
+    return x + swiglu(p.ffn, rmsnorm(p.norm2, x))
 
 
 # ---------------------------------------------------------------------------
@@ -256,16 +310,29 @@ def _apply_block(p: Block, x, cfg, positions, aux, enc_out=None,
     return x, aux
 
 
+def _apply_period(params, cfg, i: int, positions, enc_out, cache, x, aux):
+    """Period ``i``'s blocks, in pattern order."""
+    period = cfg.pattern_period
+    for l in range(i * period, (i + 1) * period):
+        x, aux = _apply_block(params.blocks[l], x, cfg, positions, aux,
+                              enc_out,
+                              None if cache is None else cache["blocks"][l])
+    return x, aux
+
+
 def _run_blocks(params, cfg, tokens, embeds, cache=None):
-    """Embed, then every block in layer order; returns (hidden, aux,
-    encoder output)."""
+    """Embed, then every block in layer order, each period under
+    ``cfg.remat`` when gradients are being taken (never with a cache);
+    returns (hidden, aux, encoder output)."""
     enc_out = encode(params, cfg, embeds) if cfg.is_enc_dec else None
     x = _embed_inputs(params, cfg, tokens, embeds)
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l, p in enumerate(params.blocks):
-        x, aux = _apply_block(p, x, cfg, positions, aux, enc_out,
-                              None if cache is None else cache["blocks"][l])
+    grads = cache is None and taking_grads(params)
+    for i in range(cfg.num_periods):
+        body = functools.partial(_apply_period, params, cfg, i, positions,
+                                 enc_out, cache)
+        x, aux = (_remat(body, cfg) if grads else body)(x, aux)
     return x, aux, enc_out
 
 

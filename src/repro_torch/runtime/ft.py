@@ -5,9 +5,10 @@
   and the data pipeline is a pure function of the step
   (``repro_torch.data.pipeline``), so a preempted job resumes losslessly.
 * retry: a failed step is retried up to ``max_retries`` times before it
-  surfaces. A failed kernel build or launch is an exception like any
-  other: it is retried, then raised; nothing falls back to a plain
-  version.
+  surfaces; a step that updates its state in place and fails after a
+  write restores the newest checkpoint instead. A failed kernel build or
+  launch is an exception like any other: it is retried, then raised;
+  nothing falls back to a plain version.
 * straggler watchdog: per-step wall time against an EWMA; steps slower
   than ``straggler_factor`` x the EWMA are counted and reported to a
   callback. The first ``warmup`` observations are left out: a cold first
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from types import SimpleNamespace
 
 from repro_torch.ckpt.checkpoint import (AsyncCheckpointer, latest_step,
                                          restore_checkpoint)
@@ -102,9 +104,17 @@ class StragglerWatchdog:
         return is_straggler
 
 
+#: ``train_loop``'s default ``codec``: the checkpoint tree is
+#: ``{"params": params, "opt": opt_state}`` as given
+TREE = SimpleNamespace(
+    to_tree=lambda params, opt_state: {"params": params, "opt": opt_state},
+    like_tree=lambda params, opt_state: {"params": params, "opt": opt_state},
+    from_tree=lambda params, opt_state, tree: (tree["params"], tree["opt"]))
+
+
 def train_loop(*, step_fn, params, opt_state, corpus, num_steps: int,
                ft: FTConfig = FTConfig(), to_device=None, log_every: int = 10,
-               on_metrics=None):
+               on_metrics=None, codec=TREE):
     """Run steps up to ``num_steps`` with checkpoint/restart, retries and
     straggler tracking.
 
@@ -117,46 +127,82 @@ def train_loop(*, step_fn, params, opt_state, corpus, num_steps: int,
     ``params`` and ``opt_state``, and the loop resumes after its step;
     the JAX package's ``train_loop`` checkpoints restore here and the
     other way round (the same leaf keys). ``corpus.batch(step)`` gives
-    each step's batch; ``to_device`` optionally moves it. A step that
-    raises is retried ``ft.max_retries`` times, then the error surfaces
-    after the write in flight completes. The step's wall time includes a
-    synchronize of the card when one is present, so the watchdog times
-    the step's work and not its launches.
+    each step's batch; ``to_device`` optionally moves it. The step's
+    wall time includes a synchronize of the card when one is present, so
+    the watchdog times the step's work and not its launches.
+
+    A step that raises is retried, ``ft.max_retries`` times at most for
+    one step, then the error surfaces after the write in flight completes.
+    A step may update its state in place (the port's ``make_train_step``
+    does); one that fails after its first write raises an error whose
+    ``state_written`` is true (``optim.adamw.PartialUpdateError``), and an
+    error from the synchronize after a step counts as such too. That state
+    is not retried: the newest checkpoint is restored and the steps after
+    it run again (the corpus is a function of the step, so they repeat
+    exactly, and ``on_metrics`` sees them again); without a checkpoint the
+    error surfaces.
+
+    ``codec`` carries state that is not a tree of tensors (the port's
+    ``Transformer`` and its AdamW state: ``models.convert.TRAIN_STATE``)
+    to and from the checkpoint tree: ``to_tree(params, opt_state)`` gives
+    the tree to write, ``like_tree(params, opt_state)`` the template to
+    read it into, and ``from_tree(params, opt_state, tree)`` puts a read
+    tree back and returns ``(params, opt_state)``; the default
+    (:data:`TREE`) writes ``{"params": params, "opt": opt_state}``.
 
     Returns ``(params, opt_state, history)``; ``history`` holds ``loss``
-    (one float a step run), ``restored_from`` (the restored step or
-    ``None``), ``straggler_steps`` and ``retries``.
+    (one float a step, from the first step after ``restored_from``),
+    ``restored_from`` (the step restored on entry or ``None``),
+    ``straggler_steps``, ``retries`` (failed attempts) and ``rollbacks``
+    (the checkpoint step restored after each failure that wrote state).
     """
     ckpt = AsyncCheckpointer(ft.ckpt_dir, keep=ft.keep)
     watchdog = StragglerWatchdog(factor=ft.straggler_factor,
                                  alpha=ft.ewma_alpha,
                                  warmup=ft.warmup_steps)
+
+    def restore(step):
+        tree = restore_checkpoint(ft.ckpt_dir, step,
+                                  codec.like_tree(params, opt_state))
+        return codec.from_tree(params, opt_state, tree)
+
     start = 0
     last = latest_step(ft.ckpt_dir)
     if last is not None:
-        state = restore_checkpoint(ft.ckpt_dir, last,
-                                   {"params": params, "opt": opt_state})
-        params, opt_state = state["params"], state["opt"]
+        params, opt_state = restore(last)
         start = last + 1
 
-    history = {"loss": [], "restored_from": last,
-               "straggler_steps": 0, "retries": 0}
-    for step in range(start, num_steps):
+    history = {"loss": [], "restored_from": last, "straggler_steps": 0,
+               "retries": 0, "rollbacks": []}
+    failures: dict[int, int] = {}
+    step = start
+    while step < num_steps:
         batch = corpus.batch(step)
         if to_device is not None:
             batch = to_device(batch)
         t0 = time.time()
-        for attempt in range(ft.max_retries + 1):
-            try:
-                params, opt_state, metrics = step_fn(
-                    params, opt_state, batch, step)
-                _synchronize()
-                break
-            except Exception:
-                history["retries"] += 1
-                if attempt == ft.max_retries:
-                    ckpt.wait()
+        out = None
+        try:
+            out = step_fn(params, opt_state, batch, step)
+            _synchronize()
+        except Exception as e:
+            history["retries"] += 1
+            failures[step] = failures.get(step, 0) + 1
+            if failures[step] > ft.max_retries:
+                ckpt.wait()
+                raise
+            # after step_fn returned, its writes were queued
+            if out is not None or getattr(e, "state_written", False):
+                ckpt.wait()
+                back = latest_step(ft.ckpt_dir)
+                if back is None:
                     raise
+                params, opt_state = restore(back)
+                history["rollbacks"].append(back)
+                del history["loss"][back + 1 - start:]
+                step = back + 1
+            continue
+        params, opt_state, metrics = out
         dt = time.time() - t0
         watchdog.observe(dt)
         loss = float(metrics["loss"])
@@ -166,7 +212,8 @@ def train_loop(*, step_fn, params, opt_state, corpus, num_steps: int,
         if log_every and step % log_every == 0:
             print(f"step {step}: loss={loss:.4f} dt={dt:.2f}s", flush=True)
         if ft.ckpt_every and step % ft.ckpt_every == 0 and step > start:
-            ckpt.save(step, {"params": params, "opt": opt_state})
+            ckpt.save(step, codec.to_tree(params, opt_state))
+        step += 1
     history["straggler_steps"] = watchdog.straggler_steps
     ckpt.wait()
     return params, opt_state, history

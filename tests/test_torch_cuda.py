@@ -1762,3 +1762,58 @@ def test_moe_routing_feeds_the_sketch_kernels(dev, no_tf32):
     b = table[torch.from_numpy(j).to(table.device)]
     assert torch.equal(ertl_stats.ertl_stats(a, b, rs.cfg.q),
                        ertl_stats.plain(a, b, rs.cfg.q))
+
+
+# ------------------------------------------------------ LM training path
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_train_step_card_vs_cpu(dev, no_tf32, arch):
+    """One ``make_train_step`` step of every arch at ``reduced()`` in
+    float32 (grok-1's moments in bfloat16) with the same carried weights
+    and batch: the loss, every gradient and every updated parameter on the
+    card within 1e-4 of the CPU's (``models.parity.step_mismatches``: a
+    parameter whose gradient is at its rounding floor, which Adam's first
+    step normalises, within 2 x the rate 3e-4, at most a thousandth of
+    them), and the CPU's step is what ``tests/test_torch_train.py`` holds
+    against the JAX package (``models.parity.train_step_on_both``, which
+    ``chip_smoke.py`` phase 9g also runs)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.parity import step_mismatches, train_step_on_both
+
+    cpu, gpu = train_step_on_both(ARCHS[arch].reduced(), dev, peak_lr=3e-4,
+                                  seed=0, data_seed=1)
+    assert gpu["lr"] == cpu["lr"]
+    assert gpu["grads"].keys() == cpu["grads"].keys()
+    assert gpu["params"].keys() == cpu["params"].keys()
+    errs, bad = step_mismatches(cpu, gpu, 1e-4)
+    print(f"{arch}: {errs}")     # the floor elements each arch needs
+    assert not bad, bad
+
+
+def test_grad_accum_on_the_card_equals_one_microbatch(dev, no_tf32):
+    """qwen2-1.5b reduced: ``grad_accum=2`` on the card against its
+    ``grad_accum=1`` step on the same batch, within 1e-5 (floor
+    gradients as in ``test_train_step_card_vs_cpu``)."""
+    from dataclasses import replace
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models.parity import step_mismatches, train_step_on_both
+
+    cfg = ARCHS["qwen2-1.5b"].reduced()
+    _, one = train_step_on_both(cfg, dev, peak_lr=3e-4)
+    _, two = train_step_on_both(replace(cfg, grad_accum=2), dev,
+                                peak_lr=3e-4)
+    _, bad = step_mismatches(one, two, 1e-5)
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("scale", [1e-3, 1.0, 300.0])
+def test_compressed_psum_on_the_card(dev, scale):
+    """``optim.compressed_psum`` over 4 pods' tensors on the card equals
+    the CPU's bit for bit (a shared max scale, int32 accumulation)."""
+    from repro_torch.optim import compressed_psum
+
+    x = (np.random.default_rng(7).normal(size=(4, 3, 50_001))
+         * scale).astype(np.float32)
+    want = compressed_psum([torch.from_numpy(r) for r in x])
+    got = compressed_psum([torch.from_numpy(r).to(dev) for r in x])
+    assert got.is_cuda and torch.equal(got.cpu(), want)
