@@ -271,6 +271,25 @@ Phases, one line each:
    card tensors equal to the CPU's, and ``python -m
    repro_torch.launch.train --arch qwen2-1.5b --steps 12 --ckpt-every 5``
    (the loss falls) then ``--steps 15`` (restores step 10);
+9d. mesh and dry-run, counters zeroed just before (no kernel launches):
+   (a) ``make_production_mesh()`` and ``(multi_pod=True)`` over the real
+   card raise ``RuntimeError`` naming 256 / 512 devices against the
+   count, and ``make_host_mesh()`` is a ("data",) mesh of the cards;
+   (b) inside 9m (48 layers) and 9g (8 layers), before the model is
+   freed: ``param_shapes(cfg)`` equals the model's shapes and dtypes key
+   for key under the JAX tree keys, ``input_specs`` on a one-card (1, 1)
+   ("data", "model") mesh reckons per-device parameter bytes (9g: and
+   AdamW state bytes) equal to the tensors' ``nbytes``, and both equal
+   the growth of ``memory_allocated()`` across the build within the
+   allocator's rounding per tensor (printed); (c) with ``pshard`` set to
+   that mesh, moonshot-v1-16b-a3b and qwen2-1.5b at ``reduced()`` give
+   prefill logits, 3 decode steps and one train step on the card equal
+   bit for bit to the runs with no mesh set, under
+   ``torch.use_deterministic_algorithms(True)``; (d) ``python -m
+   repro_torch.launch.dryrun --all`` in a subprocess: 80 cells, each OK
+   or SKIP, the skips exactly ``cell_is_applicable``'s, and
+   ``torch.cuda.is_initialized()`` false in that process; its seconds and
+   Moonlight's modeled roofline terms printed;
 10. small reference: the same queries at RMAT scale 10 on the CPU (plain
     versions) and on the card, which must agree, the top-20 recall of
     the estimated triangle heavy hitters against exact counts (reported),
@@ -375,6 +394,9 @@ TR_COV_RMS, TR_COV_MAX = 2.0, 4.0
 #: restart
 TR_RED_LR, TR_RED_TOL, TR_ACCUM_TOL = 3e-4, 1e-4, 1e-5
 TR_LAUNCH_ARCH, TR_LAUNCH_STEPS, TR_LAUNCH_RESUME = "qwen2-1.5b", 12, 15
+#: phase 9d: the reduced archs (one MoE, one dense) run with and without
+#: the one-card mesh set
+MESH_ARCHS = ("moonshot-v1-16b-a3b", "qwen2-1.5b")
 DEVICE = "cuda"
 
 SOURCES = {
@@ -3713,11 +3735,14 @@ def lm_moonlight(torch, np):
     from repro_torch.models.steps import make_decode_step, make_prefill_step
 
     cfg = ARCHS[LM_ARCH]
+    mem0 = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = tfm.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
                             cfg, DEVICE)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    rules_vs_state(torch, "9m", cfg, model,
+                   torch.cuda.memory_allocated() - mem0)
     n_params = sum(p.numel() for p in model.parameters())
     w_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
     log(f"models: {LM_ARCH} at full width ({cfg.num_layers} layers, d_model "
@@ -4081,10 +4106,13 @@ def train_moonlight(torch, np):
     t0 = time.perf_counter()
     model = tfm.init_params(torch.Generator(device=DEVICE).manual_seed(SEED),
                             cfg, DEVICE)
+    w_grown = torch.cuda.memory_allocated() - base
     opt_cfg = AdamWConfig(dtype=cfg.adam_dtype)
     opt = adamw_init(model, opt_cfg)
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    rules_vs_state(torch, "9g", cfg, model, w_grown, opt,
+                   torch.cuda.memory_allocated() - base - w_grown)
     n_params = sum(p.numel() for p in model.parameters())
     held = torch.cuda.memory_allocated() - base
     log(f"train: {LM_ARCH} at full width (d_model {cfg.d_model}, "
@@ -4338,6 +4366,219 @@ def train_phase(torch, np):
     return counts
 
 
+# ------------------------------------------------------- mesh and dry-run
+def _alloc_slack(nbytes: int) -> int:
+    """Most the caching allocator may add to one tensor's bytes: blocks
+    are multiples of 512 bytes, and a block is handed out whole when what
+    would be left of it is under 512 bytes (small pool) or under 1 MiB
+    (large pool, requests above 1 MiB)."""
+    return 1024 if nbytes <= 1 << 20 else (1 << 20) + 512
+
+
+def one_card_mesh(torch):
+    """The (1, 1) ("data", "model") mesh over the real card."""
+    from repro_torch.launch.mesh import Mesh
+    return Mesh((1, 1), ("data", "model"), (torch.device(DEVICE, 0),))
+
+
+def rules_vs_state(torch, tag, cfg, model, grown, opt=None, opt_grown=None):
+    """Phase 9d, part (b), inside phase ``tag`` before it frees the model:
+    ``param_shapes(cfg)`` equals the model's shapes and dtypes key for key
+    under the JAX tree keys; ``input_specs`` on the one-card mesh gives
+    per-device parameter bytes (and, with ``opt``, AdamW state bytes)
+    equal to the sum of the tensors' ``nbytes``; and both equal the growth
+    of ``memory_allocated()`` across the build (``grown``, ``opt_grown``)
+    within the allocator's rounding per tensor (``_alloc_slack``)."""
+    from repro_torch.configs import SHAPES
+    from repro_torch.models import convert, sharding
+    from repro_torch.models import transformer as tfm
+
+    named = dict(model.named_parameters())
+    held = convert._stacked(
+        cfg, {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+              for k, v in named.items()}, torch.stack)
+    want = tfm.param_shapes(cfg)
+    pairs = list(sharding.leaves_with_specs(want, held))
+    if len(pairs) != len(list(sharding.leaves_with_specs(held, want))):
+        fail(f"mesh ({tag}): param_shapes and the model differ in leaves")
+    for path, w, h in pairs:
+        if (tuple(w.shape), w.dtype) != (tuple(h.shape), h.dtype):
+            fail(f"mesh ({tag}): {'/'.join(map(str, path))}: param_shapes "
+                 f"{tuple(w.shape)} {w.dtype}, model {tuple(h.shape)} "
+                 f"{h.dtype}")
+    mesh = one_card_mesh(torch)
+    specs = sharding.input_specs(
+        cfg, SHAPES["train_4k" if opt is not None else "prefill_32k"], mesh)
+    held = [("parameters", list(named.values()), grown, "params")]
+    if opt is not None:
+        held.append(("AdamW state", list(opt["m"].values())
+                     + list(opt["v"].values()) + [opt["count"]],
+                     opt_grown, "opt_state"))
+    parts = []
+    for what, tensors, got, key in held:
+        nbytes = sum(t.nbytes for t in tensors)
+        rules = sharding.bytes_per_device(*specs[key], mesh)
+        slack = sum(_alloc_slack(t.nbytes) for t in tensors)
+        if rules != nbytes:
+            fail(f"mesh ({tag}): the rules reckon {rules} bytes of "
+                 f"{what} on one card, the tensors hold {nbytes}")
+        if not 0 <= got - nbytes <= slack:
+            fail(f"mesh ({tag}): {what}: memory_allocated grew {got} bytes "
+                 f"for {nbytes} in {len(tensors)} tensors (allowed rounding "
+                 f"{slack})")
+        parts.append(f"{what} {nbytes} bytes in {len(tensors)} tensors = the "
+                     f"rules' per-device bytes on (1, 1); memory_allocated "
+                     f"grew {got}, rounding {got - nbytes} bytes "
+                     f"({(got - nbytes) / len(tensors):.1f} a tensor, allowed "
+                     f"{slack})")
+    log(f"mesh ({tag}): param_shapes({cfg.name}, {cfg.num_layers} layers) "
+        f"equals the model's {len(pairs)} leaves key for key; "
+        + "; ".join(parts))
+
+
+def mesh_production(torch):
+    """Phase 9d, part (a): the production meshes refuse the real card;
+    ``make_host_mesh()`` spans the card(s)."""
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+
+    n = torch.cuda.device_count()
+    for multi, need in ((False, 256), (True, 512)):
+        try:
+            make_production_mesh(multi_pod=multi)
+        except RuntimeError as e:
+            if f"needs {need} devices, have {n}" not in str(e):
+                fail(f"mesh: make_production_mesh(multi_pod={multi}) raised "
+                     f"{e}")
+            msg = str(e)
+        else:
+            fail(f"mesh: make_production_mesh(multi_pod={multi}) took "
+                 f"{n} card(s)")
+    host = make_host_mesh()
+    if not (host.axis_names == ("data",) and host.shape == {"data": n}
+            and all(d.type == "cuda" for d in host.devices)):
+        fail(f"mesh: make_host_mesh() gave {host}")
+    log(f"mesh: make_production_mesh() and (multi_pod=True) refuse {n} "
+        f"card(s) ({msg!r}); make_host_mesh() is ('data',) over {n}")
+
+
+def mesh_hints(torch):
+    """Phase 9d, part (c): ``pshard.set_mesh`` on the one-card mesh;
+    ``MESH_ARCHS`` (a MoE and a dense arch at ``reduced()``) give prefill
+    logits, 3 decode steps and one train step on the card equal bit for
+    bit to the runs with no mesh set, under deterministic algorithms."""
+    import os
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import parity, pshard
+
+    # cuBLAS reads this before deterministic mode is first turned on
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    lines = []
+    try:
+        for name in MESH_ARCHS:
+            cfg = ARCHS[name].reduced()
+            plain = parity.mesh_runs(cfg, DEVICE, None, seed=SEED)
+            hinted = parity.mesh_runs(cfg, DEVICE, one_card_mesh(torch),
+                                      seed=SEED)
+            bad = parity.mesh_mismatches(plain, hinted)
+            if bad or pshard._MESH is not None:
+                fail(f"mesh: {name} with the (1, 1) mesh set differs from "
+                     f"the run without: {bad[:5]}")
+            lines.append(f"{name} ({cfg.family}) {len(plain['logits'])} "
+                         f"logits and {len(plain['step']['params'])} "
+                         f"updated parameters")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        pshard.clear_mesh()
+    log(f"mesh: hints on the (1, 1) mesh over the card change nothing, bit "
+        f"for bit under deterministic algorithms: {'; '.join(lines)}")
+
+
+def mesh_sweep(torch):
+    """Phase 9d, part (d): ``python -m repro_torch.launch.dryrun --all`` in
+    a subprocess (no JAX on this host): all 80 arch x shape x mesh cells
+    ``OK`` or ``SKIP``, the skips exactly ``cell_is_applicable``'s, CUDA
+    never initialised in that process; prints the Moonlight cells' modeled
+    roofline (the H100 ``HW``). Returns the sweep's seconds."""
+    import os
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.configs.registry import cell_is_applicable
+    from repro_torch.launch.dryrun import SWEEP_SHAPES
+
+    out_dir = ROOT / "build" / "chip_smoke_dryrun"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--out", str(out_dir)],
+            capture_output=True, text=True, env=env, cwd=ROOT, timeout=600)
+        secs = time.perf_counter() - t0
+        lines = res.stdout.strip().splitlines()
+        if res.returncode != 0 or not lines or not lines[-1].startswith(
+                "DRYRUN SWEEP "):
+            fail(f"mesh: the dry-run sweep exited {res.returncode}: "
+                 f"{(res.stdout + res.stderr)[-2000:]}")
+        counts = json.loads(lines[-1][len("DRYRUN SWEEP "):])
+        cells = {tuple(ln.split()[2:5]): ln.split()[1] for ln in lines[:-1]
+                 if ln.startswith("DRYRUN ")}
+        skips = {(a, sh, m) for a in ARCHS for sh in SWEEP_SHAPES
+                 for m in ("single_pod", "multi_pod")
+                 if not cell_is_applicable(a, sh)[0]}
+        if not (len(cells) == counts["cells"] == 80 and counts["fail"] == 0
+                and set(cells.values()) <= {"OK", "SKIP"}
+                and {c for c, st in cells.items() if st == "SKIP"} == skips):
+            fail(f"mesh: the sweep's cells are not 80 OK/SKIP with "
+                 f"cell_is_applicable's skips: {counts}")
+        if counts["cuda_initialized"] is not False:
+            fail("mesh: the dry-run sweep initialised CUDA")
+        roof = []
+        for sh in SWEEP_SHAPES:
+            for m in ("single_pod", "multi_pod"):
+                rec = json.loads((out_dir / f"{LM_ARCH}__{sh}__{m}.json")
+                                 .read_text())
+                if rec.get("skipped"):
+                    continue
+                r = rec["roofline"]
+                roof.append(f"{sh}/{m}: compute {r['t_compute_s']:.4g} s, "
+                            f"memory {r['t_memory_s']:.4g} s, collective "
+                            f"{r['t_collective_s']:.4g} s ({r['dominant']}), "
+                            f"{rec['collectives']['count']} collectives, "
+                            f"{rec['memory']['total_bytes_per_dev'] / 2**30:.2f}"
+                            f" GiB a device")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    log(f"mesh: dry-run sweep in a subprocess: {counts['ok']} OK, "
+        f"{counts['skip']} SKIP (= cell_is_applicable's), 0 FAIL, "
+        f"torch.cuda.is_initialized() {counts['cuda_initialized']} there; "
+        f"{secs:.1f} s with the process start ({counts['seconds']} s of "
+        f"cells)")
+    log(f"mesh: {LM_ARCH} modeled on the H100 HW (analysis.roofline.HW: "
+        f"989 TFLOP/s, 3.35 TB/s, 25 GB/s a link): {'; '.join(roof)}")
+    return secs
+
+
+def mesh_phase(torch, np):
+    """Phase 9d: the mesh and dry-run part, counters zeroed just before
+    (it launches no kernel); part (b) ran inside phases 9m and 9g.
+    Returns the counts."""
+    from repro_torch.kernels import _build
+
+    t_phase = time.perf_counter()
+    _build.reset_launch_counts()
+    mesh_production(torch)
+    mesh_hints(torch)
+    secs = mesh_sweep(torch)
+    counts = dict(_build.launch_counts())
+    log(f"mesh: phase {time.perf_counter() - t_phase:.1f} s (sweep "
+        f"{secs:.1f} s), launches "
+        f"{({k: v for k, v in counts.items() if v})}")
+    return counts
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository "
@@ -4450,6 +4691,7 @@ def main() -> int:
     phases.append(telemetry_phase(torch, np))
     phases.append(model_phase(torch, np))
     phases.append(train_phase(torch, np))
+    phases.append(mesh_phase(torch, np))
     t0 = time.perf_counter()
     phases.append(small_reference(torch, np))
     log(f"small reference: {time.perf_counter() - t0:.1f} s")

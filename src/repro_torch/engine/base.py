@@ -79,7 +79,10 @@ ENGINE_FORMAT = "degreesketch-engine-v1"
 
 __all__ = ["SketchEngine", "ENGINE_FORMAT", "SnapshotFrozen",
            "UnsupportedQuery", "SCHEDULES", "resolve_device",
-           "validate_t_max", "pad_vertices"]
+           "validate_t_max", "pad_vertices", "bucket"]
+
+#: the shape bucket of ``engine.plans``, re-exported as the reference does
+bucket = plans.bucket
 
 #: Algorithm 2 schedules every backend accepts; the sharded backend picks
 #: its dataflow by them ("auto" is the ring), a single-device one ignores

@@ -40,7 +40,8 @@ import torch
 from repro_torch.kernels import registry
 
 __all__ = ["bucket", "require_integer_ids", "split_sets", "pad_sets",
-           "normalize_sets", "split_pairs", "pad_pairs", "PlanKey",
+           "normalize_sets", "split_pairs", "pad_pairs", "normalize_pairs",
+           "pad_routing", "PlanKey",
            "PlanCache", "global_cache", "record_trace", "trace_counts",
            "reset_trace_counts", "record_event", "event_counts",
            "reset_event_counts", "build_union_plan", "build_intersection_plan",
@@ -155,6 +156,32 @@ def pad_pairs(arr: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
     mask[:n_real] = True
     return out, mask
 
+
+def normalize_pairs(pairs, n: int | None = None,
+                    ) -> tuple[np.ndarray, np.ndarray, int, bool]:
+    """Pair-query input to bucketed ((B, 2) ids, mask, n_real, scalar):
+    :func:`split_pairs` then :func:`pad_pairs`."""
+    arr, scalar = split_pairs(pairs, n)
+    out, mask = pad_pairs(arr)
+    return out, mask, arr.shape[0], scalar
+
+
+def pad_routing(src: np.ndarray, dst: np.ndarray,
+                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A directed edge routing padded to its power-of-two bucket:
+    ``(src int32[E'], dst int32[E'], mask bool[E'])``, E' =
+    ``bucket(len(src))``, padding slots masked (``ops.propagate`` drops
+    them). The port's engines pass their routing unpadded; this keeps the
+    reference's helper for callers that bucket."""
+    m = len(src)
+    cap = bucket(max(m, 1))
+    src_p = np.zeros((cap,), np.int32)
+    dst_p = np.zeros((cap,), np.int32)
+    mask = np.zeros((cap,), bool)
+    src_p[:m] = src
+    dst_p[:m] = dst
+    mask[:m] = True
+    return src_p, dst_p, mask
 
 
 # ------------------------------------------------------ trace and event counters

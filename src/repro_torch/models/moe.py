@@ -12,9 +12,9 @@ combine. A near-tie resolved differently would send a token elsewhere
 and change the output by far more than rounding, so the order matters.
 
 Side output: the (token -> expert) ids for the routing DegreeSketch
-(``data.telemetry.RoutingSketch``, DESIGN.md §5). The JAX package's
-data-axis dispatch (its partial-manual ``shard_map``) belongs to the
-sharding slice; one device routes every token here.
+(``data.telemetry.RoutingSketch``, DESIGN.md §5). The reference routes
+every token globally too: its per-data-shard ``shard_map`` dispatch is
+described in its docstring but not shipped (XLA's backward refused it).
 """
 from __future__ import annotations
 

@@ -1,7 +1,10 @@
 """One model on two devices: the same weights and inputs on the CPU and
 on ``device``, and the logits of a prefill and of greedy decode steps
 (:func:`logits_on_both`), or one train step's loss, gradients and
-updated parameters (:func:`train_step_on_both`), on both.
+updated parameters (:func:`train_step_on_both`), on both; and both of
+those on ``device`` with a sharding mesh set and without one
+(:func:`mesh_runs`, :func:`mesh_mismatches`), which must be equal bit for
+bit since a hint only checks its spec.
 
 The CPU tests hold the CPU side against the JAX package; holding the card
 against the CPU closes the chain. ``chip_smoke.py`` and
@@ -17,7 +20,8 @@ from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 
-__all__ = ["logits_on_both", "train_step_on_both", "step_mismatches"]
+__all__ = ["logits_on_both", "train_step_on_both", "step_mismatches",
+           "mesh_runs", "mesh_mismatches"]
 
 
 def _inputs(cfg: ModelConfig, batch: int, length: int, data_seed: int):
@@ -169,3 +173,36 @@ def step_mismatches(want: dict, got: dict, tol: float
     if errs["floor"] > 1e-3 * total:
         bad.append(f"{errs['floor']} of {total} parameters beyond {tol}")
     return errs, bad
+
+
+def mesh_runs(cfg: ModelConfig, device, mesh, *, seed: int = 0,
+              data_seed: int = 0) -> dict:
+    """``device``'s side of :func:`logits_on_both` (``"logits"``) and of
+    :func:`train_step_on_both` (``"step"``), with ``models.pshard``'s mesh
+    set to ``mesh`` (batch over ``sharding.batch_axes(mesh)``) and cleared
+    afterwards; ``mesh=None`` runs with none set."""
+    from repro_torch.models import pshard, sharding
+
+    if mesh is not None:
+        pshard.set_mesh(mesh, sharding.batch_axes(mesh))
+    try:
+        logits = [got for _, got in logits_on_both(
+            cfg, device, seed=seed, data_seed=data_seed)]
+        step = train_step_on_both(cfg, device, seed=seed,
+                                  data_seed=data_seed)[1]
+    finally:
+        pshard.clear_mesh()
+    return {"logits": logits, "step": step}
+
+
+def mesh_mismatches(a: dict, b: dict) -> list[str]:
+    """What differs, bit for bit, between two :func:`mesh_runs`."""
+    bad = [f"logits[{i}]" for i, (x, y) in
+           enumerate(zip(a["logits"], b["logits"])) if not torch.equal(x, y)]
+    for k in ("loss", "grad_norm"):
+        if a["step"][k] != b["step"][k]:
+            bad.append(k)
+    for what in ("grads", "params"):
+        bad += [f"{what} {k}" for k, v in a["step"][what].items()
+                if not torch.equal(v, b["step"][what][k])]
+    return bad

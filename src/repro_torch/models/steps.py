@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.models import pshard
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim.adamw import AdamWConfig, adamw_update
@@ -43,7 +44,7 @@ def chunked_ce_loss(params, cfg: ModelConfig, hidden, labels, loss_mask):
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
 
     def body(h, y, m):
-        logits = tfm.lm_logits(params, cfg, h)          # (B, chunk, V) f32
+        logits = pshard.hint(tfm.lm_logits(params, cfg, h), "btv")
         logz = torch.logsumexp(logits, dim=-1)
         gold = logits.gather(-1, y[..., None].long())[..., 0]
         return torch.sum((logz - gold) * m)

@@ -4,9 +4,13 @@
 The JAX package stacks each pattern position's parameters over the
 periods and scans them. Here :class:`Transformer` holds its blocks in
 layer order: ``blocks[i * period + j]`` is period ``i``, pattern position
-``j`` (``models.convert`` maps one form onto the other). There is no
-activation-sharding hint (``pshard``), which belongs to the sharding
-slice.
+``j`` (``models.convert`` maps one form onto the other);
+:func:`param_shapes` gives the parameters' shapes and dtypes under the
+reference's stacked tree keys, allocating nothing. The activation
+sharding hints (``models.pshard``) sit where the reference has them: on
+the embedded input of ``forward_hidden`` and ``prefill``, and after each
+block of ``prefill``. With no mesh set (one card) they return their
+input; with one set they only check the spec.
 
 Remat (``cfg.remat``, the reference's ``_remat``) wraps each period of
 the decoder stack and each encoder block in a non-reentrant
@@ -44,6 +48,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.kernels.inputs import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import pshard
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (
@@ -54,7 +59,7 @@ from repro_torch.models.layers import (
 __all__ = [
     "Block", "Encoder", "Transformer", "init_params", "forward_hidden",
     "init_cache", "prefill", "decode_step", "encode", "lm_logits",
-    "embed_lookup", "taking_grads",
+    "embed_lookup", "taking_grads", "param_shapes",
 ]
 
 
@@ -133,6 +138,16 @@ def init_params(gen: torch.Generator, cfg: ModelConfig,
     """The model with weights drawn from ``gen`` on ``device`` (``None``:
     the card, which must be present)."""
     return Transformer(cfg, gen, resolve_device(device))
+
+
+def param_shapes(cfg: ModelConfig) -> dict:
+    """The parameters as ``meta`` tensors under the JAX package's tree
+    keys (``blocks[j]`` stacked over the periods, as ``models.convert``
+    maps them): shapes and dtypes for the dry-run, no allocation."""
+    from repro_torch.models.convert import _stacked
+    model = Transformer(cfg, None, "meta")
+    return _stacked(cfg, {k: v.detach()
+                          for k, v in model.named_parameters()}, torch.stack)
 
 
 # ---------------------------------------------------------------------------
@@ -317,6 +332,8 @@ def _apply_period(params, cfg, i: int, positions, enc_out, cache, x, aux):
         x, aux = _apply_block(params.blocks[l], x, cfg, positions, aux,
                               enc_out,
                               None if cache is None else cache["blocks"][l])
+        if cache is not None:
+            x = pshard.hint(x, "btd")
     return x, aux
 
 
@@ -325,7 +342,7 @@ def _run_blocks(params, cfg, tokens, embeds, cache=None):
     ``cfg.remat`` when gradients are being taken (never with a cache);
     returns (hidden, aux, encoder output)."""
     enc_out = encode(params, cfg, embeds) if cfg.is_enc_dec else None
-    x = _embed_inputs(params, cfg, tokens, embeds)
+    x = pshard.hint(_embed_inputs(params, cfg, tokens, embeds), "btd")
     positions = torch.arange(x.shape[1], device=x.device)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     grads = cache is None and taking_grads(params)
@@ -368,8 +385,10 @@ def prefill(params, cfg: ModelConfig, tokens, cache: dict, embeds=None):
 
 def init_cache(cfg: ModelConfig, batch: int, seq: int, device=None) -> dict:
     """Zeroed caches sized for ``seq`` positions on ``device`` (``None``:
-    the card). Sliding-window layers carry a ring of window size."""
-    device = resolve_device(device)
+    the card; ``"meta"``: shapes only, for the dry-run). Sliding-window
+    layers carry a ring of window size."""
+    meta = device is not None and torch.device(device).type == "meta"
+    device = torch.device("meta") if meta else resolve_device(device)
     dtype = dtype_of(cfg.dtype)
     kv_dtype = torch.int8 if cfg.kv_cache_dtype == "int8" else dtype
     blocks = []

@@ -1817,3 +1817,45 @@ def test_compressed_psum_on_the_card(dev, scale):
     want = compressed_psum([torch.from_numpy(r) for r in x])
     got = compressed_psum([torch.from_numpy(r).to(dev) for r in x])
     assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------- meshes and hints
+def test_production_meshes_refuse_the_card(dev):
+    """``make_production_mesh`` over the real cards raises, naming the
+    devices the shape needs and the count; ``make_host_mesh`` spans the
+    cards (``chip_smoke.py`` phase 9d, part a)."""
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+
+    n = torch.cuda.device_count()
+    for multi, need in ((False, 256), (True, 512)):
+        with pytest.raises(RuntimeError,
+                           match=f"needs {need} devices, have {n}"):
+            make_production_mesh(multi_pod=multi)
+    host = make_host_mesh()
+    assert host.shape == {"data": n}
+    assert all(d.type == "cuda" for d in host.devices)
+
+
+@pytest.mark.parametrize("arch", _LM_ARCHS)
+def test_mesh_hints_change_nothing_on_the_card(dev, no_tf32, arch,
+                                               monkeypatch):
+    """With ``pshard``'s mesh set to (1, 1) over the card, every arch at
+    ``reduced()`` gives prefill logits, 3 decode steps and one train step
+    equal bit for bit to the runs with no mesh set, under deterministic
+    algorithms (``models.parity.mesh_runs``, which phase 9d runs for two
+    archs)."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models import parity, pshard
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    mesh = Mesh((1, 1), ("data", "model"), (dev,))
+    cfg = ARCHS[arch].reduced()
+    torch.use_deterministic_algorithms(True)
+    try:
+        plain = parity.mesh_runs(cfg, dev, None)
+        hinted = parity.mesh_runs(cfg, dev, mesh)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert parity.mesh_mismatches(plain, hinted) == []
+    assert pshard._MESH is None
