@@ -1,0 +1,8 @@
+"""build_ms.hops: the benchmark's span around ``engine.build`` (a host
+clock ending in a device synchronize), ms, averaged over the profiled
+jobs."""
+
+
+def read(run):
+    spans = [s.spans["build"] for s in run.profiled if "build" in s.spans]
+    return 1e3 * sum(spans) / len(spans) if spans else None

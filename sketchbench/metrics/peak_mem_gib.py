@@ -1,0 +1,6 @@
+"""peak_mem_gib: the most device memory allocated at once in the window
+(``torch.cuda.max_memory_allocated`` after a reset at its start), GiB."""
+
+
+def read(run):
+    return run.peak_bytes / 2 ** 30 if run.peak_bytes else None
