@@ -28,6 +28,7 @@ import torch
 from repro_torch.core import hll
 from repro_torch.core.hll import HLLConfig
 from repro_torch.kernels import ops, packing
+from repro_torch.tracing import span
 
 __all__ = ["ertl_stats", "log_likelihood", "mle_cardinalities",
            "mle_intersection", "inclusion_exclusion", "domination_flags",
@@ -218,24 +219,27 @@ def _grad_hess(theta: torch.Tensor, stats: torch.Tensor, u: torch.Tensor,
 def _newton_solve(theta0: torch.Tensor, stats: torch.Tensor, q: int, r: int,
                   iters: int) -> torch.Tensor:
     """Damped Newton ascent, batched over pairs: theta0 [B, 3] -> [B, 3]."""
-    u, d = _survival_weights(q, theta0.device)
-    eye = torch.eye(3, dtype=theta0.dtype, device=theta0.device)
-    theta = theta0
-    for _ in range(iters):
-        g, h = _grad_hess(theta, stats, u, d, r)
-        h = torch.where(_hessian_overflows(theta, u, d, r)[:, None, None],
-                        torch.full_like(h, float("nan")), h)
-        # Maximization: solve (mu*I - H) delta = g; mu keeps it positive.
-        mu = 1e-3 + 1e-3 * torch.diagonal(h, dim1=-2, dim2=-1).abs().amax(-1)
-        a = mu[:, None, None] * eye - h
-        # solve_ex: a singular system yields non-finite entries for that
-        # pair (as jnp.linalg.solve does) instead of raising for the batch
-        delta = torch.linalg.solve_ex(a, g, check_errors=False)[0]
-        delta = torch.clamp(delta, -1.5, 1.5)  # trust region in log space
-        theta_new = theta + delta
-        ok = torch.isfinite(theta_new).all(dim=-1, keepdim=True)
-        theta = torch.where(ok, theta_new, theta)
-    return theta
+    with span("intersection.newton"):
+        u, d = _survival_weights(q, theta0.device)
+        eye = torch.eye(3, dtype=theta0.dtype, device=theta0.device)
+        theta = theta0
+        for _ in range(iters):
+            g, h = _grad_hess(theta, stats, u, d, r)
+            h = torch.where(_hessian_overflows(theta, u, d, r)[:, None, None],
+                            torch.full_like(h, float("nan")), h)
+            # Maximization: solve (mu*I - H) delta = g; mu keeps it positive.
+            mu = 1e-3 + 1e-3 * torch.diagonal(
+                h, dim1=-2, dim2=-1).abs().amax(-1)
+            a = mu[:, None, None] * eye - h
+            # solve_ex: a singular system yields non-finite entries for that
+            # pair (as jnp.linalg.solve does) instead of raising for the
+            # batch
+            delta = torch.linalg.solve_ex(a, g, check_errors=False)[0]
+            delta = torch.clamp(delta, -1.5, 1.5)  # trust region in log space
+            theta_new = theta + delta
+            ok = torch.isfinite(theta_new).all(dim=-1, keepdim=True)
+            theta = torch.where(ok, theta_new, theta)
+        return theta
 
 
 def mle_from_stats(stats: torch.Tensor, ea: torch.Tensor, eb: torch.Tensor,

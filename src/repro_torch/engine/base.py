@@ -73,6 +73,7 @@ import torch
 from repro_torch.engine import plans
 from repro_torch.kernels import inputs, packing, registry
 from repro_torch.kernels.inputs import pad_vertices, resolve_device
+from repro_torch.tracing import span
 
 #: the ``format`` a checkpoint of an engine records (the JAX package's)
 ENGINE_FORMAT = "degreesketch-engine-v1"
@@ -114,14 +115,15 @@ def validate_t_max(t_max) -> int:
 
 def _check_edge_ids(raw: np.ndarray, n: int, what: str) -> np.ndarray:
     """Integer dtype and range checks before the int32 cast (no wrapping)."""
-    plans.require_integer_ids(raw, what)
-    if len(raw):
-        lo, hi = int(raw.min()), int(raw.max())
-        if lo < 0 or hi >= n:
-            raise ValueError(
-                f"{what}: vertex ids [{lo}, {hi}] lie outside the "
-                f"engine's universe [0, {n})")
-    return np.ascontiguousarray(raw, dtype=np.int32)
+    with span("engine.check_ids"):
+        plans.require_integer_ids(raw, what)
+        if len(raw):
+            lo, hi = int(raw.min()), int(raw.max())
+            if lo < 0 or hi >= n:
+                raise ValueError(
+                    f"{what}: vertex ids [{lo}, {hi}] lie outside the "
+                    f"engine's universe [0, {n})")
+        return np.ascontiguousarray(raw, dtype=np.int32)
 
 
 @dataclass
@@ -250,7 +252,9 @@ class SketchEngine(abc.ABC):
         if self._edges0 is None:
             return None
         if self._edge_chunks:
-            self._edges0 = np.concatenate([self._edges0] + self._edge_chunks)
+            with span("engine.edges"):
+                self._edges0 = np.concatenate(
+                    [self._edges0] + self._edge_chunks)
             self._edge_chunks = []
         return self._edges0
 
@@ -281,22 +285,24 @@ class SketchEngine(abc.ABC):
         gives a byte-identical panel. Bumps :attr:`version`. Returns self.
         Raises :class:`SnapshotFrozen` on a snapshot view.
         """
-        self._check_mutable("ingest")
-        raw = np.asarray(edge_block)
-        if raw.ndim != 2 or raw.shape[1] != 2:
-            raise ValueError(
-                f"edge_block must have shape (k, 2), got {raw.shape}")
-        if raw.shape[0] == 0:
+        with span("engine.ingest"):
+            self._check_mutable("ingest")
+            raw = np.asarray(edge_block)
+            if raw.ndim != 2 or raw.shape[1] != 2:
+                raise ValueError(
+                    f"edge_block must have shape (k, 2), got {raw.shape}")
+            if raw.shape[0] == 0:
+                return self
+            block = _check_edge_ids(raw, self.n, "edge block")
+            self._release_lease()  # never write a panel a snapshot still reads
+            for s in range(0, len(block), self.INGEST_BLOCK):
+                with span("ingest.chunk"):
+                    self._accumulate_block(block[s:s + self.INGEST_BLOCK])
+            self._version += 1
+            if self._edges0 is not None:
+                self._edge_chunks.append(block)
+            self._invalidate_caches()
             return self
-        block = _check_edge_ids(raw, self.n, "edge block")
-        self._release_lease()  # never write a panel a snapshot still reads
-        for s in range(0, len(block), self.INGEST_BLOCK):
-            self._accumulate_block(block[s:s + self.INGEST_BLOCK])
-        self._version += 1
-        if self._edges0 is not None:
-            self._edge_chunks.append(block)
-        self._invalidate_caches()
-        return self
 
     def _invalidate_caches(self) -> None:
         """Drop what derives from the panel or the edges: the propagate
@@ -530,7 +536,8 @@ class SketchEngine(abc.ABC):
         """
         self._require_kind("intersection")
         iters = self._pair_iters(method, iters)
-        arr, scalar = plans.split_pairs(pairs, self.n)
+        with span("pairs.prepare"):
+            arr, scalar = plans.split_pairs(pairs, self.n)
         out = self._intersection_presplit(arr, method, iters)
         return float(out[0]) if scalar else out
 
@@ -550,13 +557,16 @@ class SketchEngine(abc.ABC):
         """Batched intersection over parsed, validated (B, 2) pairs (the
         serving path's entry, like :meth:`_union_presplit`)."""
         self._require_kind("intersection")
-        ids, _ = plans.pad_pairs(arr)  # padding pairs (0, 0) sort last
+        with span("pairs.prepare"):
+            ids, _ = plans.pad_pairs(arr)  # padding pairs (0, 0) sort last
         fn = self._plan(
             "intersection", bucket=(ids.shape[0],), extra=(method, iters),
             builder=lambda: plans.build_intersection_plan(
                 self.cfg, self.kernels, method, iters))
         panel, ids = self._query_panel(ids)
-        return fn(panel, ids).cpu().numpy()[: arr.shape[0]]
+        out = fn(panel, ids)
+        with span("pairs.copy_back"):
+            return out.cpu().numpy()[: arr.shape[0]]
 
     def query_batch(self, *, vertex_sets=None, pairs=None,
                     degrees: bool = False, method: str = "mle",
@@ -672,7 +682,8 @@ class SketchEngine(abc.ABC):
 
     def _propagate_pass(self, regs, sched: str):
         """One counted Algorithm 2 pass (the only propagate entry point)."""
-        out = self._propagate(regs, sched)
+        with span("propagate.pass"):
+            out = self._propagate(regs, sched)
         self.propagate_passes += 1
         plans.record_event("propagate_pass")
         return out
@@ -713,9 +724,10 @@ class SketchEngine(abc.ABC):
         local = np.zeros((t_max, self.n), dtype=np.float64)
         glob = np.zeros((t_max,), dtype=np.float64)
         for t, regs in enumerate(self._panels_up_to(t_max, sched), start=1):
-            est = self._estimate_panel(regs)
-            local[t - 1] = est
-            glob[t - 1] = est.sum()
+            with span("engine.estimate"):
+                est = self._estimate_panel(regs)
+                local[t - 1] = est
+                glob[t - 1] = est.sum()
         return local, glob
 
     # --------------------------------------------- HIP distance queries

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import registry
+from repro_torch.tracing import span
 
 __all__ = ["bucket", "require_integer_ids", "split_sets", "pad_sets",
            "normalize_sets", "split_pairs", "pad_pairs", "normalize_pairs",
@@ -350,7 +351,8 @@ def build_intersection_plan(cfg, kernels, method: str, iters: int):
     fam = registry.family(kernels.family)
 
     def plan(regs, ids):
-        stats, sz = kernels.intersection_stats(regs, _on(regs, ids), cfg)
+        with span("pairs.stats"):
+            stats, sz = kernels.intersection_stats(regs, _on(regs, ids), cfg)
         return fam.estimate_from_pair_stats(stats, sz, cfg, method, iters)
     return plan
 

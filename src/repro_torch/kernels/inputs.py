@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels.hll_propagate import sort_routing
+from repro_torch.tracing import span
 
 __all__ = ["resolve_device", "pad_vertices", "INGEST_BLOCK",
            "directed_block", "directed_routing", "ROUTING_SLICE"]
@@ -89,27 +90,30 @@ def directed_routing(edges: np.ndarray, device: torch.device,
     destinations, each about ``ROUTING_SLICE`` directed edges (a vertex's
     in-edges never split), so the device holds the edge list, the result
     and one slice's temporaries at a time."""
-    e = _to_device(edges, device)
-    n_dir = 2 * e.shape[0]
-    src = torch.empty(n_dir, dtype=torch.int32, device=device)
-    dst = torch.empty_like(src)
-    if n_dir == 0:
+    with span("routing.build"):
+        with span("routing.h2d"):
+            e = _to_device(edges, device)
+        n_dir = 2 * e.shape[0]
+        src = torch.empty(n_dir, dtype=torch.int32, device=device)
+        dst = torch.empty_like(src)
+        if n_dir == 0:
+            return src, dst
+        # cum[v]: directed edges whose dst is <= v (in-degree = degree)
+        cum = torch.bincount(e.reshape(-1)).cumsum(0)
+        n_slices = -(-n_dir // ROUTING_SLICE)
+        cuts = torch.searchsorted(
+            cum, torch.arange(1, n_slices, device=device) * ROUTING_SLICE)
+        bounds = [0, *(cuts + 1).tolist(), cum.numel()]
+        at = 0
+        for lo, hi in zip(bounds, bounds[1:]):
+            if lo >= hi:
+                continue
+            with span("routing.slice"):
+                part = e[((e >= lo) & (e < hi)).any(1)]
+                s, d = _orientations(part)
+                keep = (d >= lo) & (d < hi)
+                s, d = sort_routing(s[keep], d[keep])
+                src[at:at + d.numel()] = s
+                dst[at:at + d.numel()] = d
+                at += d.numel()
         return src, dst
-    # cum[v]: directed edges whose dst is <= v (in-degree = degree)
-    cum = torch.bincount(e.reshape(-1)).cumsum(0)
-    n_slices = -(-n_dir // ROUTING_SLICE)
-    cuts = torch.searchsorted(
-        cum, torch.arange(1, n_slices, device=device) * ROUTING_SLICE)
-    bounds = [0, *(cuts + 1).tolist(), cum.numel()]
-    at = 0
-    for lo, hi in zip(bounds, bounds[1:]):
-        if lo >= hi:
-            continue
-        part = e[((e >= lo) & (e < hi)).any(1)]
-        s, d = _orientations(part)
-        keep = (d >= lo) & (d < hi)
-        s, d = sort_routing(s[keep], d[keep])
-        src[at:at + d.numel()] = s
-        dst[at:at + d.numel()] = d
-        at += d.numel()
-    return src, dst
