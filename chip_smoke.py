@@ -8,7 +8,7 @@ Run from the repository root, on a machine with one CUDA card:
 Phases, one line each:
 
 1. device: the card (``nvidia-smi`` name and power limit), torch and CUDA;
-2. build: the CUDA kernels of ``src/repro_torch/csrc`` from source, eight
+2. build: the CUDA kernels of ``src/repro_torch/csrc`` from source, nine
    byte-layout launchers and seven packed-layout ones;
 3. graph: RMAT scale 22, edge factor 16, seed 0 (4.19M vertices, about
    64M undirected edges, the Graph500 Kronecker parameters), and the
@@ -54,7 +54,16 @@ Phases, one line each:
    timed, with the run length the wrapper chose, the gather floor (one
    source row read an edge) beside the bound and, on the byte layout,
    the library yardstick ``index_reduce_(0, dst, rows, "amax")`` on the
-   source rows gathered beforehand; and every tuned kernel at every value
+   source rows gathered beforehand; the intersection MLE's Newton tail
+   (``intersection_newton``, 50 steps, one launch a call) on the main
+   path's 16,384 pairs and on 2^18 edge pairs, from the
+   ``intersection_stats`` kernel's statistics and the initializer the
+   engine takes: the pairs the overflow flag rejects keep their start
+   bit for bit and the rest agree with the plain version as
+   ``tests/test_torch_intersection_newton.py`` holds them, with the
+   kernel's CUDA-event time, the plain version's, its launches, the
+   bytes bound and the arithmetic estimate; and every tuned kernel at
+   every value
    of its autotune grid (``kernels.autotune.SWEEPS``, phase 4t's
    candidates) on the same inputs, equal to the plain result bit for bit;
 5. main path, with launch counters zeroed just before: ``engine.build``
@@ -65,8 +74,9 @@ Phases, one line each:
    the MLE, ``union_size`` on the 4,096 sets (each must equal hop 2 of
    ``neighborhood(3)`` for its vertex) and ``query_batch`` over all three
    (bit for bit the per-kind answers); every kernel of the path must have
-   launched; then the share of the pairs that the reference's
-   Hessian-overflow flag holds still;
+   launched (``intersection_newton`` once for ``intersection_size``);
+   then the share of the pairs that the reference's Hessian-overflow
+   flag holds still;
 4t. autotune, right after phase 5 on its byte engine: the packed engine of
    the same panel answers phase 5's queries on the fallback shapes; every
    op and layout (7 byte, 6 packed) is swept on the card on the main
@@ -299,9 +309,12 @@ Phases, one line each:
     with counters zeroed just before the card's run (the engine path of
     ``ertl_stats_packed``), the card's answers also equal to the byte
     kernels' on the clamped panel bit for bit; and ``impl="ref"`` engines
-    (byte and ADS) on the card, counters zeroed just before them: every
-    answer equal to the ``impl="cuda"`` engines' on the card bit for bit,
-    and no kernel launched.
+    (byte and ADS) on the card, counters zeroed just before them: no
+    kernel launched, and every answer equal to the ``impl="cuda"``
+    engines' on the card bit for bit but those of the MLE (intersections
+    and triangles), whose Newton steps the plain version sums in another
+    order than the kernel: held as the CPU's are (1e-4 of the estimates'
+    scale).
 
 Then the kernels JSON line (every launcher launched on a counted path),
 the card line, and the last line
@@ -324,6 +337,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SCALE, EDGE_FACTOR, SEED, P = 22, 16, 0, 8
+#: the Newton tail's arithmetic estimate: float32 expf / expm1f
+#: evaluations a pair, step and bin in the kernel, lane-instructions each,
+#: and the H100 SXM's boost clock (its 132 SMs x 128 lanes are read)
+NEWTON_EVALS, NEWTON_EVAL_INSTR, NEWTON_CLOCK_HZ = 11, 25, 1.755e9
 N_PAIRS = 16384
 N_SETS = 4096
 ERTL_PAIRS = 1 << 18
@@ -414,6 +431,10 @@ SOURCES = {
                    "src/repro/kernels/ertl_stats.py:55"),
     "hip_delta_rows": ("src/repro_torch/csrc/hip_delta.cu",
                        "src/repro/kernels/hip_delta.py:39"),
+    # the MLE's Newton steps: no Pallas site, jax.grad / jax.hessian under
+    # vmap in the lax.scan of _newton_solve
+    "intersection_newton": ("src/repro_torch/csrc/intersection_newton.cu",
+                            "src/repro/core/intersection.py:119"),
     # packed-layout variants: the Pallas kernels' packed bodies
     "hll_accumulate_packed": ("src/repro_torch/csrc/hll_accumulate.cu",
                               "src/repro/kernels/hll_accumulate.py:63"),
@@ -684,6 +705,7 @@ def compare_kernels(torch, np, edges, n, pairs, sets, skew, report):
            bound_ms(rows_read * r + 8 * b + 4 * b * (5 * (q + 2) + 6)), None,
            f"{b} pairs, {rows_read} distinct rows, launcher alone "
            f"{alone:.4f} ms; s of A and B equal hll_estimate_stats")
+    compare_newton(torch, np, regs_k, edges, st_k, sz_k, report)
 
     # union_estimate_stats: the main path's padded set panel
     ids_np, mask_np = plans.pad_sets(sets)
@@ -1016,6 +1038,83 @@ def compare_propagate_into(torch, np, regs, src, dst, layout, report):
                    f"edges, {rep.shape[0]} replica rows into {v_loc}, runs "
                    f"of {hll_propagate.run_edges(slot.numel(), sms)} edges",
                    ms, plain_ms, bnd, floor, lib_ms))
+
+
+def compare_newton(torch, np, regs, edges, stats16, sz16, report):
+    """Phase 4: ``intersection_newton`` (50 steps) against its plain
+    version on the main path's 16,384 pairs (``stats16``, ``sz16``: their
+    ``intersection_stats``) and on 2^18 edge pairs, from the initializer
+    the engine takes. The pairs the overflow flag rejects keep their start
+    bit for bit; the rest as ``tests/test_torch_intersection_newton.py``
+    holds them (a gap: a rate's change over the pair's union): resolved
+    pairs within 1e-5, all but 0.5% within 1e-3. Times, launches and both
+    bounds printed; the 2^18 call is the kernel's row."""
+    from repro_torch.core import hll, intersection
+    from repro_torch.core.hll import HLLConfig
+    from repro_torch.kernels import _build, intersection_stats
+    from repro_torch.kernels import intersection_newton as newton
+
+    dev = torch.device(DEVICE)
+    cfg = HLLConfig(p=P)
+    q, r, iters = cfg.q, cfg.r, intersection.NEWTON_ITERS
+    pick = np.random.default_rng(SEED + 1).choice(len(edges), ERTL_PAIRS,
+                                                  replace=False)
+    ends = torch.from_numpy(edges[pick].astype(np.int32)).to(dev)
+    st18, sz18 = intersection_stats.intersection_stats(
+        regs, ends[:, 0].contiguous(), ends[:, 1].contiguous(), q)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for stats, sz in ((stats16, sz16), (st18, sz18)):
+        b = stats.shape[0]
+        ea, eb, eu = (hll.estimate_from_stats(sz[:, i, 0], sz[:, i, 1], cfg)
+                      for i in range(3))
+        theta0 = intersection._initial_theta(ea, eb, eu).contiguous()
+        before = _build.launch_counts()["intersection_newton"]
+        got = newton.intersection_newton(theta0, stats, q, r, iters)
+        torch.cuda.synchronize()
+        launches = _build.launch_counts()["intersection_newton"] - before
+        want = newton.plain(theta0, stats, q, r, iters)
+        u, d = newton.survival_weights(q, dev)
+        flags = newton.hessian_overflows(theta0, u, d, r)
+        if launches != 1 or not torch.equal(got[flags], theta0[flags]):
+            fail(f"intersection_newton: {launches} launches for one call, or "
+                 f"a pair the overflow flag rejects moved ({b} pairs)")
+        lg, lw = torch.exp(got.double()), torch.exp(want.double())
+        union = lw.sum(-1)
+        gap = (lg - lw).abs().amax(-1) / union
+        resolved = lw[:, 2] / union >= 1.04 / r ** 0.5
+        widest = float(gap[resolved].max()) if bool(resolved.any()) else 0.0
+        wide = float((gap > 1e-3).double().mean())
+        if (not bool(torch.isfinite(got).all()) or widest > 1e-5
+                or wide > 0.005):
+            fail(f"intersection_newton differs from its plain version ({b} "
+                 f"pairs): resolved gap {widest:.3e}, share over 1e-3 {wide}")
+        ms = cuda_ms(torch, lambda: newton.intersection_newton(
+            theta0, stats, q, r, iters), 10)
+        plain_ms = cuda_ms(torch, lambda: newton.plain(
+            theta0, stats, q, r, iters), 1 if b > N_PAIRS else 3)
+        with torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            newton.plain(theta0, stats, q, r, iters)
+            torch.cuda.synchronize()
+        plain_launches = sum(
+            1 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA)
+        bytes_ms = bound_ms(b * (4 * 5 * (q + 2) + 2 * 4 * 3))
+        arith_ms = (b * iters * (q + 2) * NEWTON_EVALS * NEWTON_EVAL_INSTR
+                    / (sms * 128 * NEWTON_CLOCK_HZ) * 1e3)
+        shape = (f"{b} pairs x {iters} steps, 1 launch (plain: "
+                 f"{plain_launches} device operations); bytes bound "
+                 f"{bytes_ms:.4f} ms; flagged {int(flags.sum())} kept, "
+                 f"resolved {int(resolved.sum())}: widest gap {widest:.3e}, "
+                 f"share over 1e-3 {wide:.2e}")
+        if b > N_PAIRS:
+            report("intersection_newton", widest, ms, plain_ms, arith_ms,
+                   None, shape, bound_by="arithmetic estimate")
+        else:
+            log(f"kernel vs plain: intersection_newton at the main path's "
+                f"pairs: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"arithmetic estimate {arith_ms:.4f} ms; {shape}")
 
 
 def compare_hip_delta(torch, np, prev, cur, report):
@@ -1533,10 +1632,13 @@ def main_path(torch, np, edges, n, pairs, verts, sets, panel):
     if not np.array_equal(loc[0], deg) or not np.all(np.diff(glob) > 0):
         fail("neighborhood: hop 1 must equal degrees and sizes must grow")
 
+    before = _build.launch_counts()
     est, _ = step("intersection_size",
                   lambda: eng.intersection_size(pairs, method="mle"),
                   lambda e: f", {len(pairs)} pairs, median estimate "
                             f"{np.median(e):.3f}")
+    launch_check("main", "intersection_newton", _build.launch_counts(),
+                 before, 1, "intersection_size")
     if est.shape != (len(pairs),) or not np.isfinite(est).all():
         fail("intersection estimates are not finite or have the wrong shape")
 
@@ -1563,7 +1665,8 @@ def main_path(torch, np, edges, n, pairs, verts, sets, panel):
     log(f"kernels: {counts}")
     missing = [k for k in ("hll_accumulate", "hll_estimate_stats",
                            "hll_propagate", "intersection_stats",
-                           "union_estimate_stats") if counts[k] == 0]
+                           "union_estimate_stats", "intersection_newton")
+               if counts[k] == 0]
     if missing:
         fail(f"main-path kernels never launched: {missing}")
     overflow_share(torch, eng, pairs)
@@ -2008,38 +2111,40 @@ def small_reference(torch, np):
 
 def ref_on_card(torch, np, gpu, edges, n, sample, sets):
     """``impl="ref"`` on the card: an engine of the plain versions, byte
-    and ADS, whose registers and every answer equal the ``impl="cuda"``
-    engines' on the card bit for bit, with every launch counter still 0
-    after its calls (the counters are zeroed just before them)."""
+    and ADS, with every launch counter still 0 after its calls (the
+    counters are zeroed just before them). Its registers and answers equal
+    the ``impl="cuda"`` engines' on the card bit for bit, but those of
+    the MLE: the plain Newton steps sum in another order than the kernel,
+    so intersections and triangles are held as the CPU's are (1e-4 of the
+    estimates' scale, ``small_reference`` and ``small_triangles``)."""
     from repro_torch import engine
     from repro_torch.core.ads import ADSConfig
     from repro_torch.core.hll import HLLConfig
     from repro_torch.kernels import _build
 
     def answers(eng):
-        out = [eng.regs.cpu().numpy(), eng.degrees(), *eng.neighborhood(T_MAX),
-               eng.union_size(sets),
-               eng.intersection_size(sample, method="ie"),
-               eng.intersection_size(sample, iters=10)]
         batch = eng.query_batch(degrees=True, vertex_sets=sets, pairs=sample,
                                 iters=10)
-        out += [batch[k] for k in sorted(batch)]
-        for mode in ("edge", "vertex"):
-            tot, vals, ids = eng.triangle_heavy_hitters(20, mode=mode)
-            out += [np.float64(tot), vals, ids]
-        return out
+        exact = [eng.regs.cpu().numpy(), eng.degrees(),
+                 *eng.neighborhood(T_MAX), eng.union_size(sets),
+                 eng.intersection_size(sample, method="ie"),
+                 batch["degrees"], batch["union"]]
+        mle = [eng.intersection_size(sample, iters=10), batch["intersection"]]
+        return exact, mle
 
     def ads_answers(eng):
         hist, glob = eng.distance_histogram(ADS_T)
         return [eng.regs.cpu().numpy(), hist, glob, eng.closeness(ADS_T)]
 
-    want = answers(gpu)
+    want, want_mle = answers(gpu)
     want_ads = ads_answers(engine.build(edges, n, ADSConfig(p=P),
                                         device=DEVICE))
     _build.reset_launch_counts()
     t0 = time.perf_counter()
     ref = engine.build(edges, n, HLLConfig(p=P), impl="ref", device=DEVICE)
-    got = answers(ref)
+    got, got_mle = answers(ref)
+    for mode in ("edge", "vertex"):
+        ref.triangle_heavy_hitters(20, mode=mode)
     got_ads = ads_answers(engine.build(edges, n, ADSConfig(p=P), impl="ref",
                                        device=DEVICE))
     torch.cuda.synchronize()
@@ -2053,9 +2158,18 @@ def ref_on_card(torch, np, gpu, edges, n, sample, sets):
     if differ:
         fail(f"impl='ref' on the card differs from impl='cuda' in answers "
              f"{differ}")
+    deg = want[1]
+    scale = 2 * (deg[sample[:, 0]] + deg[sample[:, 1]])
+    for a, b in zip(got_mle, want_mle):
+        if not np.all(np.abs(a - b) <= 1e-4 * (np.abs(b) + scale)):
+            fail("impl='ref' on the card differs from impl='cuda' in its "
+                 "MLE intersections beyond 1e-4 of the estimates' scale")
+    small_triangles(np, gpu, ref, edges, n, "impl='ref' against 'cuda'")
     log(f"small reference: impl='ref' on the card ({secs:.1f} s, byte and "
         f"ADS engines): registers and {len(want) + len(want_ads) - 2} "
-        f"answers equal impl='cuda' bit for bit; launches 0")
+        f"answers equal impl='cuda' bit for bit, the MLE's "
+        f"{len(want_mle)} within 1e-4 of the estimates' scale and the "
+        f"triangles as the CPU's; launches 0")
 
 
 def small_packed(torch, np, edges, n, sample, sets):
@@ -2175,8 +2289,8 @@ def small_ads(torch, np, edges, n):
                  f"ball sizes")
 
 
-def small_triangles(np, cpu, gpu, edges, n):
-    """Both triangle modes, CPU against card (1e-4 of each edge's
+def small_triangles(np, cpu, gpu, edges, n, label="CPU against card"):
+    """Both triangle modes, ``cpu`` against ``gpu`` (1e-4 of each edge's
     estimates' scale, summed as the query sums them), and the top-20
     recall against exact counts (reported, not gated)."""
     from repro_torch.core import degreesketch as dsk
@@ -2198,12 +2312,13 @@ def small_triangles(np, cpu, gpu, edges, n):
         g_tot, g_vals, g_ids = gpu.triangle_heavy_hitters(20, mode=mode)
         if not (abs(c_tot - g_tot) <= tol.sum() / 3
                 and np.allclose(g_vals, c_vals, rtol=0, atol=atol)):
-            fail(f"small reference: {mode} triangles differ")
+            fail(f"small reference: {mode} triangles differ ({label})")
         exact_top = want_ids[mode][np.argsort(-want_top[mode])[:20]]
         hits = {tuple(np.atleast_1d(x)) for x in g_ids} & {
             tuple(np.atleast_1d(x)) for x in exact_top}
         recall[mode] = len(hits) / 20
-    log(f"small reference: triangles: estimated total {g_tot:.1f}, exact "
+    log(f"small reference: triangles ({label}): estimated total "
+        f"{g_tot:.1f}, exact "
         f"{exact.exact_global_triangles(n, edges, truth)}; top-20 recall "
         f"against exact counts: edges {recall['edge']:.2f}, vertices "
         f"{recall['vertex']:.2f} (reported, not gated)")
@@ -2952,7 +3067,8 @@ def query_server_phase(torch, np, edges, n, sets):
         f"max_memory_allocated {peak:.2f} GiB; launches {counts}")
     missing = [k for k in ("hll_accumulate", "hll_estimate_stats",
                            "hll_propagate", "intersection_stats",
-                           "union_estimate_stats") if counts[k] == 0]
+                           "union_estimate_stats", "intersection_newton")
+               if counts[k] == 0]
     if missing:
         fail(f"serving: QueryServer never launched {missing}")
     return counts
@@ -4630,16 +4746,18 @@ def main() -> int:
 
     rows = []
 
-    def report(kname, err, ms, plain_ms, bnd, lib_ms, shape):
+    def report(kname, err, ms, plain_ms, bnd, lib_ms, shape,
+               bound_by="bytes"):
         rows.append({"name": kname, "route": "cuda",
                      "source": SOURCES[kname][0],
                      "replaces": SOURCES[kname][1], "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bnd, "bound_by": "bytes",
+                     "bound_ms": bnd, "bound_by": bound_by,
                      "library_ms": lib_ms})
         log(f"kernel vs plain: {kname}: max abs err {err}, kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms (bytes), library "
-            f"{'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; {shape}")
+            f"plain {plain_ms:.4f} ms, bound {bnd:.4f} ms ({bound_by}), "
+            f"library {'null' if lib_ms is None else f'{lib_ms:.4f} ms'}; "
+            f"{shape}")
 
     skew = neighbor_sets(np, edges, n, np.random.default_rng(SEED + 5),
                          max_degree=1023)[1]

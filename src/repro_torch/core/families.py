@@ -78,10 +78,12 @@ class HLLFamily(SketchFamily):
         return hll_mod.empty_table(n, cfg, layout=layout, device=device)
 
     def estimate_from_pair_stats(self, stats, sz, cfg, method: str,
-                                 iters: int) -> torch.Tensor:
-        """Ertl T̃(xy) estimates from fused pair statistics (§4.1)."""
+                                 iters: int, impl: str = "cuda"
+                                 ) -> torch.Tensor:
+        """Ertl T̃(xy) estimates from fused pair statistics (§4.1), the
+        Newton steps by ``impl``."""
         return intersection.estimate_from_pair_stats(stats, sz, cfg, method,
-                                                     iters=iters)
+                                                     iters=iters, impl=impl)
 
     def triangle_local(self, regs, n, cfg, edges, k, mode, iters,
                        layout="byte", impl="cuda"):

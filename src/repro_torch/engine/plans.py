@@ -353,7 +353,8 @@ def build_intersection_plan(cfg, kernels, method: str, iters: int):
     def plan(regs, ids):
         with span("pairs.stats"):
             stats, sz = kernels.intersection_stats(regs, _on(regs, ids), cfg)
-        return fam.estimate_from_pair_stats(stats, sz, cfg, method, iters)
+        return fam.estimate_from_pair_stats(stats, sz, cfg, method, iters,
+                                            impl=kernels.impl)
     return plan
 
 

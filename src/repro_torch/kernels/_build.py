@@ -75,6 +75,9 @@ KERNELS = {
     "ertl_stats": (_P, _P, _P, _I64, _I32, _I32, _I32, _P),
     # prev, cur, out, n_rows, r, row_block (threads a block), stream
     "hip_delta_rows": (_P, _P, _P, _I64, _I32, _I32, _P),
+    # theta0, stats, theta, n_pairs, r, q, iters, stream (not tuned: one
+    # warp a pair)
+    "intersection_newton": (_P, _P, _P, _I64, _I32, _I32, _I32, _P),
 }
 #: the packed-layout variants take their byte kernel's arguments, with r
 #: the register count (the row is r/2 bytes)

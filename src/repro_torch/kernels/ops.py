@@ -22,7 +22,11 @@
   estimator, ``ops.py:247-263``;
 * ertl_stats: row pairs already gathered by the caller, ``ops.py:331``;
 * hip_delta: two hop panels of one shape, byte layout only,
-  ``ops.py:360-376``.
+  ``ops.py:360-376``;
+* intersection_newton: no JAX op (the reference's Newton steps are
+  ``jax.grad`` / ``jax.hessian`` in a ``lax.scan``): every damped Newton
+  step of the intersection MLE for a batch of pairs, from their start and
+  Eq. 19 histograms, layout-free and untuned.
 
 Every HLL op takes ``layout``: on "packed" each wrapper launches its
 packed kernel (rows of r/2 bytes, two 4-bit registers a byte), where the
@@ -57,6 +61,7 @@ from repro_torch.kernels import hip_delta as _hip
 from repro_torch.kernels import hll_accumulate as _acc
 from repro_torch.kernels import hll_estimate as _est
 from repro_torch.kernels import hll_propagate as _prop
+from repro_torch.kernels import intersection_newton as _newton
 from repro_torch.kernels import intersection_stats as _pair
 from repro_torch.kernels import union_estimate as _union
 from repro_torch.kernels.ertl_stats import ertl_stats as _ertl_stats
@@ -71,7 +76,8 @@ from repro_torch.kernels.union_estimate import union_estimate_stats
 
 __all__ = ["accumulate", "propagate", "propagate_into", "estimate",
            "union_estimate",
-           "intersection_stats", "ertl_stats", "hip_delta", "IMPLS"]
+           "intersection_stats", "ertl_stats", "hip_delta",
+           "intersection_newton", "IMPLS"]
 
 #: the kernel implementations every op serves
 IMPLS = ("cuda", "ref")
@@ -218,3 +224,14 @@ def hip_delta(prev: torch.Tensor, cur: torch.Tensor,
                                        p=_panel_p(prev, layout), impl=impl,
                                        layout=layout, size=prev.shape[0])
     return hip_delta_rows(prev, cur, layout=layout, row_block=row_block)
+
+
+def intersection_newton(theta0: torch.Tensor, stats: torch.Tensor, q: int,
+                        r: int, iters: int,
+                        impl: str = "cuda") -> torch.Tensor:
+    """``iters`` damped Newton steps of the intersection MLE per pair:
+    theta0 float32[B, 3] and Eq. 19 stats float32[B, 5, q+2] ->
+    float32[B, 3]."""
+    if _plain(impl):
+        return _newton.plain(theta0, stats, q, r, iters)
+    return _newton.intersection_newton(theta0, stats, q, r, iters)

@@ -1046,7 +1046,10 @@ def test_continuous_server_on_the_card(dev):
 # once); estimates to rtol=1e-6 (``torch.log`` of the linear-counting
 # branch may differ by an ulp between the devices); the MLE of
 # ``count_and`` to 1e-4 of its value. ``impl="ref"`` on the card against
-# ``impl="cuda"`` on the card: bit for bit, with no launch.
+# ``impl="cuda"`` on the card: bit for bit, with no launch, but for the
+# MLE's answers, whose plain Newton steps sum in another order than the
+# ``intersection_newton`` kernel: 1e-4 of the estimates' scale, as the card
+# is held to the CPU.
 
 def _graph(scale, seed):
     from repro_torch.graph import generators
@@ -1201,6 +1204,7 @@ def test_neighborhood_estimates_keep_the_sketchs_layout_and_impl(dev, layout,
 @pytest.mark.parametrize("layout", ["byte", "packed"])
 def test_ref_impl_on_the_card_launches_nothing_and_equals_cuda(dev, layout):
     from repro_torch import engine
+    from repro_torch.core import degreesketch as dsk
     from repro_torch.core.ads import ADSConfig
     from repro_torch.core.hll import HLLConfig
     edges, n = _graph(10, 3)
@@ -1209,27 +1213,43 @@ def test_ref_impl_on_the_card_launches_nothing_and_equals_cuda(dev, layout):
     sets = [rng.integers(0, n, rng.integers(1, 70)) for _ in range(50)]
 
     def answers(eng):
-        out = [eng.regs.cpu().numpy(), eng.degrees(), *eng.neighborhood(3),
-               eng.union_size(sets), eng.intersection_size(pairs, iters=10),
-               eng.intersection_size(pairs, method="ie")]
+        exact = [eng.regs.cpu().numpy(), eng.degrees(), *eng.neighborhood(3),
+                 eng.union_size(sets),
+                 eng.intersection_size(pairs, method="ie")]
+        mle = {"pairs": eng.intersection_size(pairs, iters=10)}
         for mode in ("edge", "vertex"):
-            tot, vals, ids = eng.triangle_heavy_hitters(10, mode=mode,
-                                                        iters=10)
-            out += [np.float64(tot), vals, ids]
-        return out
+            mle[mode] = eng.triangle_heavy_hitters(10, mode=mode,
+                                                   iters=10)[:2]
+        return exact, mle
 
-    cuda = answers(engine.build(edges, n, HLLConfig(p=8), layout=layout))
+    cuda_eng = engine.build(edges, n, HLLConfig(p=8), layout=layout)
+    cuda, cuda_mle = answers(cuda_eng)
     _build.reset_launch_counts()
     ref_eng = engine.build(edges, n, HLLConfig(p=8), layout=layout,
                            impl="ref")
     assert ref_eng.device.type == "cuda" and ref_eng.impl == "ref"
-    ref = answers(ref_eng)
+    ref, ref_mle = answers(ref_eng)
     if layout == "byte":
         ads = engine.build(edges, n, ADSConfig(p=8), impl="ref")
         ref_hist = ads.distance_histogram(3)
     assert set(_build.launch_counts().values()) == {0}
     for a, b in zip(ref, cuda):
         assert np.array_equal(a, b)
+    deg = cuda[1]
+    # |A u B| <= |A| + |B|: the terms of the difference, as in the tests
+    ptol = 1e-4 * (np.abs(cuda_mle["pairs"])
+                   + 2 * (deg[pairs[:, 0]] + deg[pairs[:, 1]]))
+    assert np.all(np.abs(ref_mle["pairs"] - cuda_mle["pairs"]) <= ptol)
+    est = dsk.edge_triangle_estimates(
+        dsk.DegreeSketch(regs=cuda_eng.regs, n=n, cfg=cuda_eng.cfg,
+                         layout=layout), edges, iters=10)
+    tol = 1e-4 * (np.abs(est) + 2 * (deg[edges[:, 0]] + deg[edges[:, 1]]))
+    vtol = (np.bincount(edges[:, 0], tol, n)
+            + np.bincount(edges[:, 1], tol, n)) / 2
+    for mode, atol in (("edge", tol.max()), ("vertex", vtol.max())):
+        (tot, vals), (w_tot, w_vals) = ref_mle[mode], cuda_mle[mode]
+        assert abs(tot - w_tot) <= tol.sum() / 3
+        np.testing.assert_allclose(vals, w_vals, rtol=0, atol=atol)
     if layout == "byte":
         want = engine.build(edges, n, ADSConfig(p=8)).distance_histogram(3)
         for a, b in zip(ref_hist, want):
