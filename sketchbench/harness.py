@@ -174,16 +174,16 @@ class Context:
                 spec, self, step)
         return spec
 
-    def reserve(self, calls: list, steps: int) -> None:
-        """Let each generator of ``calls``' arguments make those of steps
-        0 .. steps - 1 now, in set-up (``gen/<name>.py``'s optional
-        ``reserve(spec, ctx, steps)``)."""
+    def reserve(self, calls: list) -> None:
+        """Let each generator of ``calls``' arguments make every argument
+        it will hand out now, in set-up (``gen/<name>.py``'s optional
+        ``reserve(spec, ctx)``)."""
         for spec in calls:
             for a in (*spec.get("args", []), *spec.get("kwargs", {}).values()):
                 if isinstance(a, dict) and "gen" in a:
                     gen = load_module(BENCH_DIR / "gen" / f"{a['gen']}.py")
                     if hasattr(gen, "reserve"):
-                        gen.reserve(a, self, steps)
+                        gen.reserve(a, self)
 
     # ---------------------------------------------------------- program
     def build(self):
@@ -270,7 +270,7 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float,
         prog.build_lib.library()
         nvcc_s = time.perf_counter() - t
     loop = load_module(BENCH_DIR / "loops" / f"{cell.traffic['loop']}.py")
-    state = loop.setup(ctx, cell.traffic, seconds)
+    state = loop.setup(ctx, cell.traffic)
     window = loop.run(ctx, cell.traffic, state, seconds, trace, t_start)
     card = _card(torch, cell.chips) if dev.is_cuda else {
         "platform": "cpu", "kind": "cpu", "count": 0}

@@ -31,10 +31,6 @@ from pathlib import Path
 from sketchbench import harness
 from sketchbench.trace import Trace
 
-#: steps whose arguments set-up makes, over those the warm-up's pace
-#: expects in the window
-MARGIN = 2.0
-
 
 @dataclass
 class State:
@@ -88,23 +84,18 @@ def _step(ctx, traffic: dict, state: State, index: int) -> harness.Step:
     return step
 
 
-def setup(ctx, traffic: dict, seconds: float) -> State:
-    """Build the set-up engine, if any, run the warm-up steps, and have
-    the arguments of the steps a window of ``seconds`` is expected to run
-    made now: ``MARGIN`` times as many as the last warm-up step's time
-    gives, and the profiled ones."""
+def setup(ctx, traffic: dict) -> State:
+    """Build the set-up engine, if any, have the generators make every
+    argument the window will take, and run the warm-up steps."""
     state = State()
     if traffic["engine"] == "setup":
         state.engine = ctx.build()
         ctx.device.sync()
+    ctx.reserve(traffic["calls"])
     for _ in range(int(traffic["warmup_steps"])):
         step = _step(ctx, traffic, state, state.next_index)
         state.next_index += 1
         state.warm_step_s = step.end - step.start
-    if state.warm_step_s > 0:
-        expect = int(MARGIN * seconds / state.warm_step_s) + 1
-        ctx.reserve(traffic["calls"], state.next_index + expect
-                    + int(traffic["profile_steps"]))
     return state
 
 

@@ -18,6 +18,7 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import json  # noqa: E402
+import resource  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
@@ -44,9 +45,13 @@ def main(argv=None) -> int:
                            bool(args.trace), cell=cell, t_start=T_START)
     steps = sorted(1e3 * s for s in out.pop("step_s"))
     if steps:
-        print(f"steps: {len(steps)}, ms min {steps[0]:.1f} median "
-              f"{steps[len(steps) // 2]:.1f} max {steps[-1]:.1f}",
+        print(f"steps: {len(steps)}, ms mean {sum(steps) / len(steps):.1f} "
+              f"min {steps[0]:.1f} median "
+              f"{steps[len(steps) // 2]:.1f} p90 "
+              f"{steps[int(0.9 * (len(steps) - 1))]:.1f} max {steps[-1]:.1f}",
               file=sys.stderr)
+    rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2 ** 20
+    print(f"host: peak RSS {rss:.2f} GiB", file=sys.stderr)
     for name, c in out["checks"].items():
         print(f"check {name}: {c['value']!r} (limit {c['limit']!r})",
               file=sys.stderr)

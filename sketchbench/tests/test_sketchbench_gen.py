@@ -1,5 +1,5 @@
-"""The device RMAT generator: canonical form, size against the program's
-numpy generator, one graph a seed."""
+"""The device RMAT generator (canonical form, size against the program's
+numpy generator, one graph a seed) and the pairs generator's pool."""
 from __future__ import annotations
 
 import numpy as np
@@ -56,18 +56,66 @@ def _sample_ctx(seed: int):
                            device=SimpleNamespace(torch=torch, kind="cpu"))
 
 
-@pytest.mark.parametrize("reserved", [0, 5, 40])
-def test_edge_sample_depends_on_seed_and_step_alone(reserved):
-    """A step's pairs are the same whether set-up reserved it or not, and
-    are edges of the graph."""
+POOL = 40   # not a multiple of the block, so the last block is part-used
+SPEC = {"gen": "edge_sample", "count": 64, "pool": POOL}
+
+
+@pytest.mark.parametrize("before", [0, 5, 40])
+def test_edge_sample_depends_on_seed_and_step_alone(before):
+    """A step's pairs are the same whether set-up reserved the pool or
+    not and whichever step came first, and are edges of the graph."""
     from sketchbench.gen import edge_sample
-    spec = {"gen": "edge_sample", "count": 64}
     fresh, ctx = _sample_ctx(2 ** 31 + 9), _sample_ctx(2 ** 31 + 9)
-    edge_sample.reserve(spec, ctx, reserved)
+    edge_sample.reserve(SPEC, ctx)
+    edge_sample.make(SPEC, fresh, before)
     keys = set(map(tuple, fresh.edges.tolist()))
     for step in (0, 3, 17, 39):
-        got = edge_sample.make(spec, ctx, step)
-        assert np.array_equal(got, edge_sample.make(spec, fresh, step))
+        got = edge_sample.make(SPEC, ctx, step)
+        assert np.array_equal(got, edge_sample.make(SPEC, fresh, step))
         assert got.shape == (64, 2) and set(map(tuple, got.tolist())) <= keys
-    assert not np.array_equal(edge_sample.make(spec, ctx, 1),
-                              edge_sample.make(spec, ctx, 2))
+    assert not np.array_equal(edge_sample.make(SPEC, ctx, 1),
+                              edge_sample.make(SPEC, ctx, 2))
+
+
+@pytest.mark.parametrize("first", [0, 7, 39])
+def test_edge_sample_pool_repeats(first):
+    """Step i and step i + k * pool send the same pairs."""
+    from sketchbench.gen import edge_sample
+    ctx = _sample_ctx(2 ** 31 + 9)
+    got = edge_sample.make(SPEC, ctx, first)
+    for later in (first + POOL, first + 5 * POOL):
+        assert np.array_equal(got, edge_sample.make(SPEC, ctx, later))
+
+
+def test_edge_sample_pool_requests_differ():
+    from sketchbench.gen import edge_sample
+    ctx = _sample_ctx(2 ** 31 + 9)
+    edge_sample.reserve(SPEC, ctx)
+    seen = {edge_sample.make(SPEC, ctx, i).tobytes() for i in range(POOL)}
+    assert len(seen) == POOL
+
+
+@pytest.mark.parametrize("pool,steps", [(POOL, 0), (POOL, 3),
+                                        (POOL, 100_000), (256, 7_800)])
+def test_edge_sample_reserve_draws_the_pool_alone(pool, steps):
+    """Set-up draws ceil(pool / BLOCK) blocks, and a window of any number
+    of steps then draws none."""
+    from sketchbench.gen import edge_sample
+    spec = dict(SPEC, pool=pool)
+    ctx = _sample_ctx(2 ** 31 + 9)
+    edge_sample.reserve(spec, ctx)
+    drawn = ctx.cache[("edge_sample", 64)]
+    assert sorted(drawn) == list(range(-(-pool // edge_sample.BLOCK)))
+    for step in (0, pool - 1, pool, 3 * pool + 5, steps, steps + 1):
+        edge_sample.make(spec, ctx, step)
+    assert len(drawn) == -(-pool // edge_sample.BLOCK)
+
+
+def test_edge_sample_needs_a_pool():
+    from sketchbench.gen import edge_sample
+    ctx = _sample_ctx(2 ** 31 + 9)
+    spec = {"gen": "edge_sample", "count": 64}
+    with pytest.raises(KeyError):
+        edge_sample.reserve(spec, ctx)
+    with pytest.raises(KeyError):
+        edge_sample.make(spec, ctx, 0)
